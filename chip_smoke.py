@@ -11,17 +11,26 @@ Phases, each timed:
                version on the card, bit-exact, at the main path's shapes
                (masked match: M = 8192 map points, N = 1024 keypoints, with
                and without the octave gate), and times both with CUDA
-               events (median of 25 after warm-up);
+               events (median of 25 after warm-up). Each time stands beside
+               two least times: the dense-pair bound (every pair at the
+               card's instruction rates) and the in-window bound (only the
+               pairs the window passes, or the bytes), the kernel's
+               yardstick;
   4. main    - the keyframe-inclusive per-frame pipeline at bench width
                (EuRoC pinhole, 480x752, 8192 map points, 1024 features,
                8 octaves, 256 keyframe slots, 24 seeded keyframes; one map
                point planted on each feature of the image and seen by the
                last 3 keyframes, 0.5 px noise on keyframe observations):
                16 frames of extract -> track, with mapping + local BA
-               (12-keyframe window, 2 fixed) on every 8th frame. Launch
-               counts are zeroed just before and read just after; the run
-               fails unless every kernel of the path launched as the
-               design says, poses are finite and counts in range.
+               (12-keyframe window, 2 fixed) on every 8th frame. After the
+               warm-up the image pyramid built on the card must equal the
+               CPU's bit for bit, and the folded inputs of one tracking
+               step's three masked-match calls (coarse, widened, fine) are
+               captured and each is checked bit-exact and timed as in
+               phase 3. Launch counts are zeroed just before and read just
+               after; the run fails unless every kernel of the path
+               launched as the design says, poses are finite and counts in
+               range.
                After the counted run, each stage runs once more under
                torch.profiler, which prints its device-busy time, kernel
                launches and top kernels.
@@ -30,6 +39,12 @@ Phases, each timed:
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX.
+
+    python3 chip_smoke.py --compare-cu TAG=OTHER.cu [--compare-cu ...]
+
+also builds each OTHER.cu (a masked-match source with the same C
+interface, e.g. an earlier version of the kernel) and times it in turns
+with the current kernel on every masked-match input, within the run.
 """
 
 import json
@@ -46,10 +61,22 @@ M_MAP, N_FEAT, IMG_H, IMG_W = 8192, 1024, 480, 752
 N_LEVELS, MAX_KF, SEED_KF = 8, 256, 24
 FRAMES, KF_EVERY, BA_WINDOW, BA_FIXED = 16, 8, 12, 2
 TIMING_REPS = 25
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and float32
-# operations/s outside the tensor cores; integer popcount issues no faster
+# H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+# instructions per SM per clock on compute capability 9.0 (NVIDIA's CUDA
+# C++ documentation, arithmetic instruction throughput table)
+RATE_INT, RATE_POPC, RATE_FP32 = 64, 16, 128
+# SM-clocks per (row, keypoint) pair of the masked Hamming search: 8 XOR,
+# 8 adds and 4 compares/selects (window, octave, mask) on the integer
+# pipe, 8 popcounts, and 6 fp32 ops (du, dv, du^2, dv^2, sum, octave
+# difference)
+PAIR_CYCLES = 20 / RATE_INT + 8 / RATE_POPC + 6 / RATE_FP32
+# a pair the window passes also updates the top-2 (3 compares/selects)
+PASS_CYCLES = PAIR_CYCLES + 3 / RATE_INT
+# per row: r*|r|, the window and its cell range (12 fp32 ops), and the
+# merge of its lanes' top-2 states (shuffle rounds of 3 values with their
+# compares and selects: ~40 integer-pipe instructions)
+ROW_CYCLES = 12 / RATE_FP32 + 40 / RATE_INT
 
 
 def _phase(name, t0):
@@ -82,6 +109,24 @@ def _cuda_ms(fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
+def _graph_ms(fn, inner=20):
+    """Device milliseconds of one ``fn`` launch: ``inner`` launches captured
+    in a CUDA graph, replayed and timed with CUDA events, so the host's
+    per-launch work does not count."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return _cuda_ms(graph.replay) / inner
+
+
 def _match_case(rng, M, N):
     """Random descriptors with planted exact matches near their map points,
     duplicated keypoints (ties), invalid map points, negative radii and a
@@ -111,7 +156,127 @@ def _match_case(rng, M, N):
                 kp_octave=rng.randint(0, 8, N).astype(np.int32))
 
 
-def check_masked_match(dev):
+def _sm_clocks_mhz():
+    """(current, max) SM clock in MHz as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    cur, mx = out.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(mx)
+
+
+def match_bounds(M, N, pairs, sms, clock_mhz):
+    """Least times (ms) of one masked-match call: the dense-pair bound (all
+    M*N pairs at the instruction rates), the in-window bound (only the
+    ``pairs`` the window passes, plus every row's window and merge) and the
+    bytes (inputs read once, outputs written once)."""
+    per_ms = sms * clock_mhz * 1e3          # SM-clocks per millisecond
+    n_bytes = M * (16 + 32) + N * (16 + 32) + 3 * M * 4
+    dense = M * N * PAIR_CYCLES / per_ms
+    window = (pairs * PASS_CYCLES + M * ROW_CYCLES) / per_ms
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(dense_bound_ms=dense, in_window_ops_ms=window,
+                bytes_ms=t_bytes, bound_ms=max(window, t_bytes),
+                bound_by="operations" if window >= t_bytes else "bytes",
+                dense_ops_sm_clocks=M * N * PAIR_CYCLES, n_bytes=n_bytes)
+
+
+def load_compare(path, tag):
+    """Build another masked-match source with nvcc, as kernels/build.py
+    builds the port's, and return its launcher (same C interface)."""
+    import ctypes
+    from orb_slam_fusion_tpu_torch.kernels import build
+    out_dir = build.BUILD_DIR / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"lib{tag}.so"
+    t0 = time.perf_counter()
+    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
+                           str(lib), str(path)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "registers" in ln]
+    print(f"built {path} as {tag} in {time.perf_counter() - t0:.2f} s; "
+          f"ptxas: {regs}", flush=True)
+    fn_name, argtypes = build.SIGNATURES["masked_match"]
+    fn = getattr(ctypes.CDLL(str(lib)), fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def time_match_call(label, uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+                    compare=None):
+    """Check one folded masked-match input bit-exact against the plain
+    version and time it: the kernel alone (``ms``, CUDA graph, so the
+    host's launch work does not count), the wrapper call as the main path
+    pays it (``call_ms``) and the plain version. ``compare`` maps tags to
+    other launchers with the same C interface, timed alone in turns with
+    the kernel. Returns the measurements and both bounds."""
+    import torch
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.kernels.build import launcher
+
+    got = mm.masked_match_cuda(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+    want = mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo, kp_desc)
+    mask = mm.window_mask(uvr, kp_uvo)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max().item()) for g, w in zip(got, want))
+    if err != 0:
+        raise RuntimeError(f"masked_match kernel disagrees with its plain "
+                           f"version on {label}: max_abs_err {err}")
+    M, N = uvr.shape[0], kp_uvo.shape[0]
+    pairs = int(mask.sum().item())
+    visible = int((uvr[:, 2] >= 0).sum().item())
+    outs = [torch.empty(M, dtype=torch.int32, device=uvr.device)
+            for _ in range(3)]
+
+    def raw(fn):
+        def go():
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(uvr.data_ptr(), mp_desc.data_ptr(), kp_uvo.data_ptr(),
+                    kp_desc.data_ptr(), M, N, int(bool(use_octave)),
+                    outs[0].data_ptr(), outs[1].data_ptr(),
+                    outs[2].data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"masked_match launch failed: CUDA error "
+                                   f"{rc}")
+        return go
+
+    res = dict(call=label, M=M, N=N, visible_rows=visible,
+               in_window_pairs=pairs, max_abs_err=err)
+    runs = {"kernel": raw(launcher("masked_match"))}
+    runs.update({tag: raw(fn) for tag, fn in (compare or {}).items()})
+    for tag, go in runs.items():
+        for o in outs:
+            o.fill_(-7)
+        go()
+        torch.cuda.synchronize()
+        if any(not torch.equal(o, w) for o, w in zip(outs, want)):
+            raise RuntimeError(f"{tag} disagrees with the plain version on "
+                               f"{label}")
+    turns = {tag: [] for tag in runs}
+    for _ in range(2):                   # in turns: kernel, others, ...
+        for tag, go in runs.items():
+            turns[tag].append(_graph_ms(go))
+    cur, mx = _sm_clocks_mhz()           # read beside the timing window
+    for tag, ts in turns.items():
+        key = "ms" if tag == "kernel" else f"{tag}_ms"
+        res[key], res[key + "_turns"] = min(ts), ts
+    res["call_ms"] = _cuda_ms(lambda: mm.masked_match_cuda(
+        uvr, mp_desc, kp_uvo, kp_desc, use_octave))
+    res["plain_ms"] = _cuda_ms(lambda: mm.masked_match_folded_plain(
+        uvr, mp_desc, kp_uvo, kp_desc))
+    sms = torch.cuda.get_device_properties(uvr.device).multi_processor_count
+    res.update(sm_clock_mhz=cur, sm_clock_max_mhz=mx, sms=sms)
+    res.update(match_bounds(M, N, pairs, sms, cur))
+    print("masked_match " + json.dumps(res), flush=True)
+    return res
+
+
+def check_masked_match(dev, compare=None):
     """Kernel vs plain version at M = 8192, N = 1024; returns the report."""
     import numpy as np
     import torch
@@ -123,69 +288,60 @@ def check_masked_match(dev):
     c = _match_case(rng, M_MAP, N_FEAT)
     t = {k: (desc_to_torch(v, dev) if k.endswith("desc")
              else torch.from_numpy(v).to(dev)) for k, v in c.items()}
-    max_err = 0
     for octave in (False, True):
         uvr, kp_uvo = mm._fold(
             t["pred_uv"], t["mp_valid"], t["radius"], t["kp_uv"],
             t["kp_valid"], t["mp_octave"] if octave else None,
             t["kp_octave"] if octave else None)
-        got = mm.masked_match_cuda(uvr, t["mp_desc"], kp_uvo, t["kp_desc"],
-                                   octave)
         want = mm.masked_match_folded_plain(uvr, t["mp_desc"], kp_uvo,
                                             t["kp_desc"])
-        torch.cuda.synchronize()
         ok_rows = want[1] < BIG
-        diffs = [
-            (got[0] - want[0])[ok_rows].abs(),
-            (got[1] - want[1]).abs(),
-            (got[2] - want[2]).abs(),
-        ]
-        err = max(int(d.max().item()) if d.numel() else 0 for d in diffs)
         n_masked = int((~ok_rows).sum().item())
         n_ties = int(((want[2] == want[1]) & ok_rows).sum().item())
         n_exact = int((want[1] == 0).sum().item())
-        print(f"masked_match octave={octave}: max_abs_err {err}, "
-              f"all-masked rows {n_masked}, tied rows {n_ties}, "
-              f"exact matches {n_exact}", flush=True)
-        if err != 0 or n_masked == 0 or n_ties == 0 or n_exact == 0:
-            raise RuntimeError("masked_match kernel disagrees with its "
-                               "plain version (or the case lacks coverage)")
-        max_err = max(max_err, err)
-
-    # time the kernel and the plain version on the octave-gated inputs
-    def kernel():
-        mm.masked_match_cuda(uvr, t["mp_desc"], kp_uvo, t["kp_desc"], True)
-
-    def plain():
-        mm.masked_match_folded_plain(uvr, t["mp_desc"], kp_uvo,
-                                     t["kp_desc"])
-
-    ms = _cuda_ms(kernel)
-    plain_ms = _cuda_ms(plain)
-    # least time: inputs read once + outputs written once over HBM, or the
-    # per-pair work (8 XOR + 8 popcount + 8 adds + 5 window ops) over the
-    # card's float32 CUDA-core peak, whichever is larger
-    M, N = M_MAP, N_FEAT
-    n_bytes = M * (16 + 32) + N * (16 + 32) + 3 * M * 4
-    n_ops = M * N * (8 + 8 + 8 + 5)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    print(f"masked_match: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {max(t_bytes, t_ops):.5f} ms ({n_ops} ops, {n_bytes} "
-          f"bytes)", flush=True)
+        print(f"masked_match synthetic octave={octave}: all-masked rows "
+              f"{n_masked}, tied rows {n_ties}, exact matches {n_exact}",
+              flush=True)
+        if n_masked == 0 or n_ties == 0 or n_exact == 0:
+            raise RuntimeError("the masked_match case lacks coverage")
+        res = time_match_call(f"synthetic octave={octave}", uvr,
+                              t["mp_desc"], kp_uvo, t["kp_desc"], octave,
+                              compare)
+    # the octave-gated synthetic case heads the kernels line
     return dict(
         name="masked_match", route="cuda",
         source="orb_slam_fusion_tpu_torch/csrc/masked_match.cu",
         replaces="orb_slam_fusion_tpu/frontend/pallas_match.py:42",
-        max_abs_err=max_err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None, ok=True)
+        max_abs_err=res["max_abs_err"], ms=res["ms"],
+        call_ms=res["call_ms"], plain_ms=res["plain_ms"],
+        bound_ms=res["bound_ms"],
+        bound_by=res["bound_by"], dense_bound_ms=res["dense_bound_ms"],
+        in_window_pairs=res["in_window_pairs"], library_ms=None, ok=True)
 
 
-def run_main_path(dev):
+def capture_match_inputs(fn):
+    """Run ``fn`` once and return the folded inputs of every masked-match
+    launch it makes (copies), in call order."""
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    seen, launch = [], mm.masked_match_cuda
+
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
+        seen.append((uvr.clone(), mp_desc.clone(), kp_uvo.clone(),
+                     kp_desc.clone(), use_octave))
+        return launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+
+    mm.masked_match_cuda = record
+    try:
+        fn()
+    finally:
+        mm.masked_match_cuda = launch
+    return seen
+
+
+def run_main_path(dev, compare=None):
     """16 bench-width frames; returns (per-stage ms lists, launch counts,
-    per-frame log, whether the last pose is finite)."""
+    per-frame log, whether the last pose is finite, the per-call masked
+    match measurements of one tracking step)."""
     import numpy as np
     import torch
     from orb_slam_fusion_tpu_torch import lie, synth
@@ -194,6 +350,7 @@ def run_main_path(dev):
     from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
     from orb_slam_fusion_tpu_torch.frontend.extractor import (
         OrbParams, extract_features, inv_scale_sigma2)
+    from orb_slam_fusion_tpu_torch.frontend.pyramid import build_pyramid
     from orb_slam_fusion_tpu_torch.solver.local_ba import local_ba_step
 
     rng = np.random.RandomState(0)
@@ -243,6 +400,27 @@ def run_main_path(dev):
     keyframe_ba(keyframe_map(m, u.pose, f0, u.obs).map)
     torch.cuda.synchronize()
 
+    # the pyramid on the card must carry the bits the CPU tests pin to the
+    # reference's jax.image.resize
+    for lvl, (a, b) in enumerate(zip(
+            build_pyramid(img, N_LEVELS, params.scale_factor),
+            build_pyramid(img.cpu(), N_LEVELS, params.scale_factor))):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError(f"pyramid level {lvl} differs between the card "
+                               f"and the CPU")
+    print(f"pyramid: {N_LEVELS} levels bit-identical on the card and the CPU",
+          flush=True)
+
+    # the three masked-match calls of one tracking step, on their own inputs
+    calls = capture_match_inputs(lambda: track(
+        m, ident, f0, m.mp_visible.clone(), m.mp_found.clone()))
+    if len(calls) != 3:
+        raise RuntimeError(f"{len(calls)} masked-match calls in one tracking "
+                           f"step, expected 3")
+    match_calls = [time_match_call(name, *args, compare=compare)
+                   for name, args in zip(("coarse", "widened", "fine"),
+                                         calls)]
+
     stages = {"extract": [], "track": [], "mapping": [], "local_ba": []}
 
     def timed(name, fn):
@@ -280,7 +458,7 @@ def run_main_path(dev):
         "mapping": lambda: keyframe_map(m, pose, f, u.obs),
         "local_ba": lambda: keyframe_ba(m),
     })
-    return stages, launches, log, finite
+    return stages, launches, log, finite, match_calls
 
 
 def profile_stages(stages):
@@ -309,7 +487,13 @@ def profile_stages(stages):
                     for e in top[:6]]}), flush=True)
 
 
-def main():
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compare-cu", action="append", default=[],
+                    metavar="TAG=PATH",
+                    help="another masked-match source to time in turns")
+    args = ap.parse_args(argv)
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     import torch
@@ -333,12 +517,14 @@ def main():
               flush=True)
     _phase("build", t0)
 
+    compare = {tag: load_compare(path, tag) for tag, path in
+               (c.split("=", 1) for c in args.compare_cu)}
     t0 = time.perf_counter()
-    report = check_masked_match(dev)
+    report = check_masked_match(dev, compare)
     _phase("kernels", t0)
 
     t0 = time.perf_counter()
-    stages, launches, log, finite = run_main_path(dev)
+    stages, launches, log, finite, match_calls = run_main_path(dev, compare)
     for e in log:
         print("frame " + json.dumps(e), flush=True)
     _phase("main", t0)
@@ -373,6 +559,10 @@ def main():
     print("stage ms (all): " + json.dumps(stages), flush=True)
     report["launches"] = launches["masked_match"]
     report["launches_per_frame"] = launches["masked_match"] / FRAMES
+    report["main_path_calls"] = [
+        {k: c[k] for k in ("call", "visible_rows", "in_window_pairs", "ms",
+                           "call_ms", "plain_ms", "bound_ms", "bound_by",
+                           "dense_bound_ms")} for c in match_calls]
     print(json.dumps({"kernels": [report]}), flush=True)
     print(card, flush=True)
     _phase("report", t0)

@@ -5,7 +5,10 @@ Counterpart of ``orb_slam_fusion_tpu/frontend/pallas_match.py``
 inside its pixel window (and octave window when octaves are given), the
 best and second-best Hamming distance, without materialising the (M, N)
 distance matrix. The kernel is ``csrc/masked_match.cu`` (CUDA C++ for
-sm_90a), built by ``kernels/build.py`` and called through ctypes.
+sm_90a), built by ``kernels/build.py`` and called through ctypes: each
+block keeps the keypoints in shared memory, binned into a grid of cells,
+and a row visits only the cells its window overlaps, so the popcounts are
+spent on the pairs the window passes.
 
 ``masked_match`` sends a CUDA tensor to the kernel, always; a CPU tensor
 goes to ``masked_match_plain``, the plain PyTorch version the tests hold
@@ -52,20 +55,24 @@ def _fold(pred_uv, mp_valid, radius, kp_uv, kp_valid, mp_octave,
     return uvr, kp_uvo
 
 
-def masked_match_folded_plain(uvr: torch.Tensor, mp_desc: torch.Tensor,
-                              kp_uvo: torch.Tensor, kp_desc: torch.Tensor
-                              ) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-    """What the kernel computes, on folded inputs, in plain PyTorch."""
-    dist = hamming_distance(mp_desc, kp_desc)                  # (M, N)
+def window_mask(uvr: torch.Tensor, kp_uvo: torch.Tensor) -> torch.Tensor:
+    """(M, N) bool: the pairs the pixel window and the octave gate pass."""
     du = uvr[:, 0:1] - kp_uvo[None, :, 0]
     dv = uvr[:, 1:2] - kp_uvo[None, :, 1]
     r = uvr[:, 2:3]
     ok = (du * du + dv * dv) <= r * torch.abs(r)
     mp_oct = uvr[:, 3:4]
-    ok = ok & ((torch.abs(mp_oct - kp_uvo[None, :, 2]) <= 1.5)
-               | (mp_oct < 0.0))
-    return masked_min2(dist, ok)
+    return ok & ((torch.abs(mp_oct - kp_uvo[None, :, 2]) <= 1.5)
+                 | (mp_oct < 0.0))
+
+
+def masked_match_folded_plain(uvr: torch.Tensor, mp_desc: torch.Tensor,
+                              kp_uvo: torch.Tensor, kp_desc: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """What the kernel computes, on folded inputs, in plain PyTorch."""
+    return masked_min2(hamming_distance(mp_desc, kp_desc),
+                       window_mask(uvr, kp_uvo))
 
 
 def masked_match_plain(pred_uv, mp_desc, mp_valid, radius, kp_uv, kp_desc,
@@ -92,7 +99,10 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def masked_match_cuda(uvr: torch.Tensor, mp_desc: torch.Tensor,
                       kp_uvo: torch.Tensor, kp_desc: torch.Tensor,
                       use_octave: bool):
-    """Launch the kernel on folded CUDA inputs; returns 3 x (M,) int32."""
+    """Launch the kernel on folded CUDA inputs; returns 3 x (M,) int32,
+    what ``masked_match_folded_plain`` returns. With ``use_octave`` False
+    the kernel skips the octave gate, which the plain version passes
+    anyway when ``uvr[:, 3] < 0`` (``_fold`` sets -1e4 there)."""
     global launches
     from ..kernels.build import launcher
 
@@ -106,9 +116,11 @@ def masked_match_cuda(uvr: torch.Tensor, mp_desc: torch.Tensor,
     _check("mp_desc", mp_desc, (M, 8), torch.int32, dev)
     _check("kp_uvo", kp_uvo, (N, 4), torch.float32, dev)
     _check("kp_desc", kp_desc, (N, 8), torch.int32, dev)
-    for name, t in (("uvr", uvr), ("kp_uvo", kp_uvo)):
+    for name, t in (("uvr", uvr), ("mp_desc", mp_desc), ("kp_uvo", kp_uvo),
+                    ("kp_desc", kp_desc)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4)")
+            raise ValueError(f"{name} must be 16-byte aligned (read as "
+                             f"16-byte vectors)")
     out = [torch.empty(M, dtype=torch.int32, device=dev) for _ in range(3)]
     fn = launcher("masked_match")
     with torch.cuda.device(dev):

@@ -2,15 +2,34 @@
 
 Counterpart of ``orb_slam_fusion_tpu/frontend/pyramid.py``. The reference
 downscales with ``jax.image.resize(..., "bilinear")``, which antialiases
-when it shrinks: it applies a triangle filter as wide as the scale step,
-as ``jax.image.scale_and_translate`` does. ``F.interpolate`` does not
-compute the same weights, so the port builds those separable weight
-matrices itself, in numpy float32 with the reference's formula, and
-applies them as two fp32 products. Those products sum in another order
-than XLA's, so levels >= 1 differ from the reference's in the last float
-bits (hazard H1 in ROADMAP.md). The blur is the reference's 2*(2r+1)
-shifted multiply-adds, rounded as XLA's CPU build of it rounds them, so
-given the same level it is bit-exact.
+when it shrinks: a triangle filter as wide as the scale step, applied as
+one dot product per axis (height first). ``F.interpolate`` computes other
+weights, so the port rebuilds the resize, rounded as the reference's CPU
+build (jax 0.9, XLA:CPU) rounds it, so that the levels come out bit for
+bit the same:
+
+* the weights (``resize_weights``) follow XLA's two loop fusions: columns
+  in the vectorised part round the sample position as an FMA and the tent
+  as multiply-then-subtract; columns XLA unrolls or leaves to the scalar
+  remainder round the other way round. The column totals are summed in
+  windows of 32 rows, as XLA's tree reduction does;
+* each output pixel sums only its 2-3 non-zero taps (``_taps``), in the
+  order of the dot kernel XLA's CPU runtime picks for that shape
+  (``_dot_plan``): a chain of fused multiply-adds in increasing input
+  index, cut into blocks of the contracted axis, or 2 or 4 interleaved
+  FMA chains summed pairwise plus a separately rounded tail.
+
+These rules were read off the reference by probing its summation order.
+The 480x752 bench pyramid and the 120x160 test images, every shape the
+port runs, are pinned bit-exact by ``tests/test_torch_frontend.py``.
+Portrait images contract in the other order, and some small sizes fall
+into another blocking regime; neither is pinned (ROADMAP.md, C1). The
+fused multiply-adds go through float64 (exact product, then two
+roundings), the same bits on every device; in the rare case where the
+float64 sum lands on a float32 tie they can differ from a true FMA by one
+ulp. The blur is the reference's 2*(2r+1) shifted multiply-adds, rounded
+as XLA's CPU build of it rounds them, so given the same level it is
+bit-exact too.
 """
 
 from __future__ import annotations
@@ -68,45 +87,168 @@ def gaussian_blur(img: torch.Tensor, sigma: float = 2.0,
     return _blur_axis(lambda i: x[:, i:i + w], k)
 
 
+def _np_fma(a, b, c) -> np.ndarray:
+    """float32 a*b + c through float64, as ``_fma``."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=64)
 def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) float32 antialiased triangle-filter weights,
-    computed as ``jax.image.scale_and_translate`` computes them."""
+    """(in_size, out_size) float32 antialiased triangle-filter weights, with
+    the bits of the weights the reference's compiled resize computes."""
     f32 = np.float32
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = f32(max(inv_scale, 1.0))
-    sample_f = ((np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale)
-                - f32(0.0) - f32(0.5))
-    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) \
-        / kernel_scale
-    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
-    total = np.zeros((1, out_size), f32)
-    for i in range(in_size):           # sequential, as XLA reduces
-        total = total + weights[i:i + 1]
-    weights = np.where(np.abs(total) > f32(1000.0 * np.finfo(f32).eps),
-                       weights / np.where(total != 0, total, f32(1.0)),
-                       f32(0.0))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+    inv_scale = f32(1.0 / (out_size / in_size))
+    rk = f32(f32(1.0) / f32(max(float(inv_scale), 1.0)))
+    pos = np.arange(out_size, dtype=f32) + f32(0.5)
+    k = np.arange(in_size, dtype=f32)[:, None]
+    # sample position: an FMA where XLA's loop computes it, two roundings
+    # where it constant-folds it (unrolled or remainder columns)
+    s_vec = _np_fma(pos, inv_scale, f32(-0.5))
+    s_sca = (pos * inv_scale + f32(-0.5)).astype(f32)
+    d_vec = np.abs(s_vec[None, :] - k).astype(f32)
+    d_sca = np.abs(s_sca[None, :] - k).astype(f32)
+    tent_vec = np.maximum(f32(1) - (d_vec * rk).astype(f32), f32(0))
+    tent_sca = np.maximum(_np_fma(-d_sca, rk, f32(1)), f32(0))
+    cols = np.arange(out_size)
+
+    def vectorised(min_cols, width):
+        if out_size < min_cols:           # XLA unrolls the whole row
+            return np.zeros(out_size, bool)
+        return cols < out_size - out_size % width
+
+    fin = vectorised(88, 8)               # the normalising fusion
+    tot = vectorised(352, 32)             # the fusion feeding the totals
+    w = np.where(fin[None], tent_vec, tent_sca).astype(f32)
+    wt = np.where(tot[None], tent_vec, tent_sca).astype(f32)
+    pad = (-in_size) % 32
+    wt = np.concatenate([np.zeros((pad // 2, out_size), f32), wt,
+                         np.zeros((pad - pad // 2, out_size), f32)])
+    total = np.zeros(out_size, f32)
+    for r0 in range(0, wt.shape[0], 32):  # windows of 32, then across
+        part = np.zeros(out_size, f32)
+        for r in range(r0, r0 + 32):
+            part = (part + wt[r]).astype(f32)
+        total = (total + part).astype(f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    sample = np.where(fin, s_vec, s_sca)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def _dot_plan(kind: str, rows: int, k: int, n: int):
+    """How the reference's CPU dot sums over the contracted axis for one
+    resize pass: ``("chain", block_starts)`` or ``("lanes", lanes, main)``.
+    ``kind`` "h" is the height pass (weights contracted on their rows),
+    "w" the width pass; ``rows`` x ``n`` is the pass's output."""
+    if kind == "h":
+        if k <= 320:
+            return ("chain", (0,))
+        blocks = -(-k // 320)
+        kc = -(-(k // blocks) // 8) * 8
+        return ("chain", tuple(range(0, k, kc)))
+    if rows >= 51 and (n - 1) % 64 < 48:
+        lanes = 4 if (n - 1) % 32 < 16 else 2
+        return ("lanes", lanes, k - k % lanes)
+    return ("chain", tuple(range(0, k, 512)))
+
+
+@functools.lru_cache(maxsize=64)
+def _taps(in_size: int, out_size: int, kind: str, rows: int,
+          device: torch.device):
+    """Per output pixel, its non-zero taps and the order that sums them, on
+    ``device``: (plan, index (T, out) long, weight (T, out) float64, steps).
+    Columns with fewer than T taps are padded with weight 0 (adding an
+    exact 0 changes nothing). ``steps`` lists, per tap position t, where
+    its product goes: for a chain, the mask of columns whose k-block starts
+    at t; for lanes, (group, mask, first) per group that t feeds, ``first``
+    when no earlier tap of the column fed that group."""
+    w = resize_weights(in_size, out_size)
+    nz = [np.nonzero(w[:, j])[0] for j in range(out_size)]
+    T = max(1, max(len(t) for t in nz))
+    idx = np.zeros((T, out_size), np.int64)
+    wt = np.zeros((T, out_size), np.float64)
+    ok = np.zeros((T, out_size), bool)
+    for j, ks in enumerate(nz):
+        idx[:len(ks), j] = ks
+        wt[:len(ks), j] = w[ks, j]
+        ok[:len(ks), j] = True
+    as_t = lambda a: torch.from_numpy(a).to(device)    # noqa: E731
+    plan = _dot_plan(kind, rows, in_size, out_size)
+    steps = []
+    if plan[0] == "chain":
+        block = np.searchsorted(np.asarray(plan[1]), idx, side="right") - 1
+        for t in range(T):
+            new = ok[t] & (block[t] != block[t - 1]) if t else None
+            steps.append(as_t(new) if new is not None and new.any()
+                         else None)
+    else:
+        lanes, main = plan[1], plan[2]
+        group = np.where(idx < main, idx % lanes, lanes)
+        for t in range(T):
+            feeds = []
+            for g in range(lanes + 1):
+                m = ok[t] & (group[t] == g)
+                if m.any():
+                    before = (ok[:t] & (group[:t] == g)).any(axis=0)
+                    feeds.append((g, as_t(m), not (m & before).any()))
+            steps.append(feeds)
+    return plan, as_t(idx), as_t(wt), steps
+
+
+def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
+    """Resize the last axis of x (R, in) to (R, out_size), summing each
+    output's taps in the reference dot's order (``_dot_plan``). A float32
+    product is exact in float64, so (p + c) in float64 rounded to float32
+    stands for a fused multiply-add (see the module docstring)."""
+    rows = out_size if kind == "h" else x.shape[0]
+    plan, idx, wt, steps = _taps(x.shape[1], out_size, kind, rows, x.device)
+    xd = x.double()
+    prods = [xd[:, idx[t]] * wt[t] for t in range(idx.shape[0])]
+    if plan[0] == "chain":
+        done, cur = None, prods[0].float()
+        for t in range(1, len(prods)):
+            if steps[t] is not None:       # a new k-block: bank the chain
+                if done is None:
+                    done = torch.zeros_like(cur)
+                done = torch.where(steps[t], done + cur, done)
+                cur = torch.where(steps[t], torch.zeros_like(cur), cur)
+            cur = (prods[t] + cur.double()).float()
+        return cur if done is None else done + cur
+    lanes = plan[1]
+    zero = torch.zeros((x.shape[0], out_size), dtype=torch.float32,
+                       device=x.device)
+    acc = [zero] * (lanes + 1)
+    for t, feeds in enumerate(steps):
+        pf = prods[t].float()              # the product, rounded once
+        for g, m, first in feeds:
+            if g == lanes:                 # the remainder: mul, then add
+                val = acc[g] + pf
+            elif first:                    # a lane's first product
+                val = pf
+            else:                          # interleaved FMA chains
+                val = (prods[t] + acc[g].double()).float()
+            acc[g] = torch.where(m, val, acc[g])
+    if lanes == 4:
+        main = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    else:
+        main = acc[0] + acc[1]
+    return main + acc[lanes]
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
                     ) -> torch.Tensor:
-    """``jax.image.resize(img, shape, "bilinear")`` for a 2-D image."""
+    """``jax.image.resize(img, shape, "bilinear")`` for a 2-D image, with
+    the reference's bits on the CPU (height first, as for landscape
+    images)."""
     h, w = img.shape
     out = img
-    if shape[1] != w:
-        out = out @ _weights_on(w, shape[1], img.device)
     if shape[0] != h:
-        out = _weights_on(h, shape[0], img.device).T @ out
-    return out
-
-
-@functools.lru_cache(maxsize=64)
-def _weights_on(in_size: int, out_size: int, device: torch.device
-                ) -> torch.Tensor:
-    """``resize_weights`` as a tensor on ``device``, copied there once."""
-    return torch.from_numpy(resize_weights(in_size, out_size)).to(device)
+        out = _resize_pass(out.T, shape[0], "h").T
+    if shape[1] != w:
+        out = _resize_pass(out, shape[1], "w")
+    return out.contiguous()
 
 
 def build_pyramid(img: torch.Tensor, num_levels: int = 8,

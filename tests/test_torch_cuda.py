@@ -7,6 +7,8 @@ JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 ``chip_smoke.py`` runs the same comparison at the main path's full shapes.
+The adversarial cases (``torch_match_cases.py``) are the ones the CPU
+tests hold the plain version to against the reference's Pallas kernel.
 """
 
 import os
@@ -18,6 +20,8 @@ import torch
 
 from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
 from orb_slam_fusion_tpu_torch.map.convert import desc_to_torch
+
+import torch_match_cases as cases
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +42,8 @@ def cuda():
 @pytest.mark.parametrize("octave", [False, True])
 def test_kernel_matches_plain_on_card(cuda, M, N, octave):
     """Bit-exact against the plain version for ragged M and N (a partial
-    row block, a partial keypoint chunk, N = 1)."""
+    row block, N = 1; N beyond the shared-memory budget is one of the
+    adversarial cases)."""
     rng = np.random.RandomState(M + N)
     pred_uv = rng.uniform(0, 100, (M, 2)).astype(np.float32)
     kp_uv = rng.uniform(0, 100, (N, 2)).astype(np.float32)
@@ -66,6 +71,29 @@ def test_kernel_matches_plain_on_card(cuda, M, N, octave):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("octave", [False, True])
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_kernel_matches_plain_on_adversarial_cases(cuda, name, octave):
+    """Bit-exact against the plain version on window and cell borders,
+    clusters, r = 0 / -1 / huge / infinite / NaN, NaN and infinite centres,
+    keypoints at 1e9 and off the image, ties across cells, N = 1, M = 1 and
+    N beyond the shared-memory budget (the chunked path)."""
+    c = cases.CASES[name]()
+    t = lambda k: torch.from_numpy(np.array(c[k])).to(cuda)  # noqa: E731
+    args = [t("pred_uv"), desc_to_torch(c["mp_desc"], cuda), t("mp_valid"),
+            t("radius"), t("kp_uv"), desc_to_torch(c["kp_desc"], cuda),
+            t("kp_valid")]
+    kw = (dict(mp_octave=t("mp_octave"), kp_octave=t("kp_octave"))
+          if octave else {})
+    before = mm.launches
+    got = mm.masked_match(*args, **kw)
+    assert mm.launches == before + 1
+    want = mm.masked_match_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("best_idx", "best", "second")):
+        assert torch.equal(g, w), (what, int((g != w).sum()))
 
 
 def test_cuda_wrapper_rejects_cpu_tensors(cuda):

@@ -3,15 +3,13 @@
 Images are the bench's textured recipe at 120x160, made with numpy from a
 seed. What is bit-exact and what is not:
 
-* Given the same pyramid levels, the port's extraction matches the
-  reference bit for bit: keypoints, octaves, responses, descriptors.
-* Level 0 of the pyramid is the image itself, so its features are exact
-  end to end. Levels >= 1 come from the antialiased resize; XLA's CPU
-  compiler contracts multiply-adds into FMAs and sums in its own order
-  (hazard H1 in ROADMAP.md), so those levels differ in the last float
-  bits. Keypoint positions and octaves still agree exactly here, but a
-  BRIEF comparison of two nearly equal pixels (flat, saturated rectangles)
-  can flip; those rows are held to a stated Hamming bound instead.
+* The pyramid is bit-exact: the port's resize rounds and orders each
+  output pixel's taps as the reference's compiled ``jax.image.resize``
+  does on the CPU (ROADMAP.md, C1), on these images and on the 480x752
+  bench pyramid.
+* So the whole extraction matches the reference bit for bit on every
+  octave: keypoints, octaves, responses, descriptors. Only the angle is
+  held to a tolerance (a 961-term float sum in another order).
 """
 
 import jax
@@ -65,49 +63,70 @@ def test_extract_from_same_pyramid_is_bit_exact(seed):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_extract_features_matches_reference(seed):
-    """Whole extraction from the image: keypoint set (uv exact, octave,
-    valid) bit-exact; angle atol 1e-4; descriptors bit-exact on octave 0;
-    on octaves >= 1 (H1) at most 8 of 256 bits differ in any row and at
-    least 85% of the rows are bit-exact."""
+    """Whole extraction from the image: keypoint set (uv, octave, valid),
+    responses and descriptors on every octave bit-exact; angle atol
+    1e-4."""
     pj, pt = _params()
     img = _image(seed)
     fj = _jax_feats(je.extract_features(jnp.asarray(img), pj))
     ft = features_to_numpy(te.extract_features(torch.from_numpy(img), pt))
-    for k in ("uv", "octave", "valid"):
+    for k in ("uv", "octave", "valid", "response", "desc"):
         np.testing.assert_array_equal(fj[k], ft[k], err_msg=k)
     np.testing.assert_allclose(fj["angle"], ft["angle"], atol=1e-4)
-    np.testing.assert_allclose(fj["response"], ft["response"], rtol=1e-6,
-                               atol=5e-3)
-    lvl0 = fj["octave"] == 0
-    np.testing.assert_array_equal(fj["desc"][lvl0], ft["desc"][lvl0])
-    up = fj["valid"] & ~lvl0
-    bits = np.unpackbits((fj["desc"][up] ^ ft["desc"][up]).view(np.uint8),
-                         axis=1).sum(axis=1)
-    assert bits.max(initial=0) <= 8, bits.max()
-    assert (bits == 0).mean() >= 0.85, (bits == 0).mean()
+    assert (fj["valid"] & (fj["octave"] > 0)).sum() > 50
+
+
+def _compiled_weights(m, n):
+    """The weights the reference's compiled resize uses: resizing the
+    identity multiplies each weight by 1 and adds zeros, exactly."""
+    eye = jnp.eye(m, dtype=jnp.float32)
+    return np.asarray(jax.jit(
+        lambda a: jax.image.resize(a, (m, n), "bilinear"))(eye))
 
 
 def test_pyramid_and_blur():
-    """Level 0 and the blur (as the reference runs it, compiled) are
-    bit-exact; the resize weights equal the reference's to 2.5e-7; levels
-    >= 1 agree within 5e-3 grey levels of 255 (H1: FMA contraction and
-    summation order)."""
+    """Every pyramid level, eager and inside one jit, and the blur (as the
+    reference runs it, compiled) are bit-exact; so are the resize weights
+    against the ones the compiled resize uses, at every step of this
+    pyramid and of the bench's."""
     img = _image(3)
     lj = jpyr.build_pyramid(jnp.asarray(img), LEVELS, 1.2)
+    lk = jax.jit(lambda a: jpyr.build_pyramid(a, LEVELS, 1.2))(
+        jnp.asarray(img))
     lt = tpyr.build_pyramid(torch.from_numpy(img), LEVELS, 1.2)
     assert [tuple(a.shape) for a in lj] == [tuple(b.shape) for b in lt]
-    np.testing.assert_array_equal(np.asarray(lj[0]), lt[0].numpy())
-    for a, b in zip(lj[1:], lt[1:]):
-        np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=5e-3)
+    for a, k, b in zip(lj, lk, lt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        np.testing.assert_array_equal(np.asarray(k), b.numpy())
     blur = jax.jit(jpyr.gaussian_blur)
     for lv in lj:
         np.testing.assert_array_equal(
             np.asarray(blur(lv)),
             tpyr.gaussian_blur(torch.from_numpy(np.array(lv))).numpy())
-    from jax._src.image import scale as jscale
-    w = np.asarray(jscale.compute_weight_mat(
-        160, 133, 133 / 160, 0.0, jscale._fill_triangle_kernel, True))
-    np.testing.assert_allclose(tpyr.resize_weights(160, 133), w, atol=2.5e-7)
+    for h, w, n in ((H, W, LEVELS), (480, 752, 8)):
+        shapes = tpyr.level_shapes(h, w, n, 1.2)
+        for (a, b), (c, d) in zip(shapes[:-1], shapes[1:]):
+            for m, k in ((a, c), (b, d)):
+                np.testing.assert_array_equal(
+                    tpyr.resize_weights(m, k), _compiled_weights(m, k),
+                    err_msg=f"{m}->{k}")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "textured"])
+def test_bench_pyramid_bit_exact(kind):
+    """The 480x752 bench pyramid (8 levels) is bit-exact against the
+    reference's, built inside one jit, on a uniform-random image and on the
+    bench's textured image."""
+    if kind == "uniform":
+        img = (np.random.default_rng(0).random((480, 752)) * 255).astype(
+            np.float32)
+    else:
+        img = synth.textured_image(np.random.RandomState(0), 480, 752)
+    lj = jax.jit(lambda a: jpyr.build_pyramid(a, 8, 1.2))(jnp.asarray(img))
+    lt = tpyr.build_pyramid(torch.from_numpy(img), 8, 1.2)
+    for lvl, (a, b) in enumerate(zip(lj, lt)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                      err_msg=f"level {lvl}")
 
 
 def test_fast_detect_and_nms():

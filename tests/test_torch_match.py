@@ -5,8 +5,11 @@ plain version.
 so here it is held bit-exact against the reference's Pallas kernel (in
 interpret mode, as the reference's own tests run it on the CPU) and
 against ``matcher.masked_min2`` with explicit masks: ties, all-masked
-rows, the octave gate on and off. The CUDA launch itself is tested on the
-card (tests/test_torch_cuda.py).
+rows, the octave gate on and off, and the adversarial cases of
+``torch_match_cases.py`` (window and cell borders, clusters, special
+radii and centres, far keypoints, ties across cells, N = 1, M = 1, N beyond
+the kernel's shared-memory budget). The CUDA launch itself is tested on
+the card (tests/test_torch_cuda.py), on the same cases.
 """
 
 import jax.numpy as jnp
@@ -19,6 +22,8 @@ from orb_slam_fusion_tpu.frontend.pallas_match import masked_match_pallas
 from orb_slam_fusion_tpu_torch.frontend import masked_match as tmm
 from orb_slam_fusion_tpu_torch.frontend import matcher as tm
 from orb_slam_fusion_tpu_torch.map.convert import desc_to_torch
+
+import torch_match_cases as cases
 
 torch.set_num_threads(1)
 
@@ -87,6 +92,26 @@ def test_plain_matches_pallas_kernel_bit_exact(seed, octave):
     assert (best == tm.BIG).sum() >= 60                  # all-masked rows
     assert ((second == best) & (best < tm.BIG)).any()    # ties seen
     assert (best == 0).sum() >= 30                       # planted matches
+
+
+@pytest.mark.parametrize("octave", [False, True])
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_plain_matches_pallas_on_adversarial_cases(name, octave):
+    """The yardstick pinned at the edges: bit-exact against the Pallas
+    kernel in interpret mode on every adversarial case."""
+    c = cases.CASES[name]()
+    ref = masked_match_pallas(
+        *(jnp.asarray(c[k]) for k in ("pred_uv", "mp_desc", "mp_valid",
+                                      "radius", "kp_uv", "kp_desc",
+                                      "kp_valid")),
+        mp_octave=jnp.asarray(c["mp_octave"]) if octave else None,
+        kp_octave=jnp.asarray(c["kp_octave"]) if octave else None,
+        interpret=True)
+    args, kw = _torch_args(c, octave)
+    out = tmm.masked_match(*args, **kw)
+    for r, o, what in zip(ref, out, ("best_idx", "best", "second")):
+        np.testing.assert_array_equal(np.asarray(r), o.numpy(),
+                                      err_msg=what)
 
 
 @pytest.mark.parametrize("octave", [False, True])
