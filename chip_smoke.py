@@ -11,11 +11,14 @@ Phases, each timed:
                version on the card, bit-exact, at the main path's shapes
                (masked match: M = 8192 map points, N = 1024 keypoints, with
                and without the octave gate), and times both with CUDA
-               events (median of 25 after warm-up). Each time stands beside
-               two least times: the dense-pair bound (every pair at the
-               card's instruction rates) and the in-window bound (only the
-               pairs the window passes, or the bytes), the kernel's
-               yardstick;
+               events (median of 25 after warm-up): the kernel alone
+               (``ms`` = ``kernel_ms``, one launch of 20 captured in a
+               CUDA graph), the wrapper call as the main path pays it,
+               host included (``call_ms``), and the plain version. Each
+               time stands beside two least times at the card's maximum
+               SM clock: the dense-pair bound (every pair at the card's
+               instruction rates) and the in-window bound (only the pairs
+               the window passes, or the bytes), the kernel's yardstick;
   4. main    - the keyframe-inclusive per-frame pipeline at bench width
                (EuRoC pinhole, 480x752, 8192 map points, 1024 features,
                8 octaves, 256 keyframe slots, 24 seeded keyframes; one map
@@ -39,12 +42,6 @@ Phases, each timed:
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX.
-
-    python3 chip_smoke.py --compare-cu TAG=OTHER.cu [--compare-cu ...]
-
-also builds each OTHER.cu (a masked-match source with the same C
-interface, e.g. an earlier version of the kernel) and times it in turns
-with the current kernel on every masked-match input, within the run.
 """
 
 import json
@@ -73,10 +70,8 @@ RATE_INT, RATE_POPC, RATE_FP32 = 64, 16, 128
 PAIR_CYCLES = 20 / RATE_INT + 8 / RATE_POPC + 6 / RATE_FP32
 # a pair the window passes also updates the top-2 (3 compares/selects)
 PASS_CYCLES = PAIR_CYCLES + 3 / RATE_INT
-# per row: r*|r|, the window and its cell range (12 fp32 ops), and the
-# merge of its lanes' top-2 states (shuffle rounds of 3 values with their
-# compares and selects: ~40 integer-pipe instructions)
-ROW_CYCLES = 12 / RATE_FP32 + 40 / RATE_INT
+# per row, the test that it can pass anything: r*|r| and its sign
+ROW_CYCLES = 1 / RATE_FP32 + 1 / RATE_INT
 
 
 def _phase(name, t0):
@@ -167,10 +162,11 @@ def _sm_clocks_mhz():
 
 
 def match_bounds(M, N, pairs, sms, clock_mhz):
-    """Least times (ms) of one masked-match call: the dense-pair bound (all
-    M*N pairs at the instruction rates), the in-window bound (only the
-    ``pairs`` the window passes, plus every row's window and merge) and the
-    bytes (inputs read once, outputs written once)."""
+    """Least times (ms) of one masked-match call at ``clock_mhz`` (the
+    card's maximum SM clock): the dense-pair bound (all M*N pairs at the
+    instruction rates), the in-window bound (only the ``pairs`` the window
+    passes, plus every row's test) and the bytes (inputs read once,
+    outputs written once)."""
     per_ms = sms * clock_mhz * 1e3          # SM-clocks per millisecond
     n_bytes = M * (16 + 32) + N * (16 + 32) + 3 * M * 4
     dense = M * N * PAIR_CYCLES / per_ms
@@ -182,39 +178,12 @@ def match_bounds(M, N, pairs, sms, clock_mhz):
                 dense_ops_sm_clocks=M * N * PAIR_CYCLES, n_bytes=n_bytes)
 
 
-def load_compare(path, tag):
-    """Build another masked-match source with nvcc, as kernels/build.py
-    builds the port's, and return its launcher (same C interface)."""
-    import ctypes
-    from orb_slam_fusion_tpu_torch.kernels import build
-    out_dir = build.BUILD_DIR / "compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"lib{tag}.so"
-    t0 = time.perf_counter()
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o",
-                           str(lib), str(path)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {path}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln]
-    print(f"built {path} as {tag} in {time.perf_counter() - t0:.2f} s; "
-          f"ptxas: {regs}", flush=True)
-    fn_name, argtypes = build.SIGNATURES["masked_match"]
-    fn = getattr(ctypes.CDLL(str(lib)), fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
-
-
-def time_match_call(label, uvr, mp_desc, kp_uvo, kp_desc, use_octave,
-                    compare=None):
+def time_match_call(label, uvr, mp_desc, kp_uvo, kp_desc, use_octave):
     """Check one folded masked-match input bit-exact against the plain
-    version and time it: the kernel alone (``ms``, CUDA graph, so the
-    host's launch work does not count), the wrapper call as the main path
-    pays it (``call_ms``) and the plain version. ``compare`` maps tags to
-    other launchers with the same C interface, timed alone in turns with
-    the kernel. Returns the measurements and both bounds."""
+    version and time it: the kernel alone (``kernel_ms``, CUDA graph, so
+    the host's launch work does not count), the wrapper call as the main
+    path pays it (``call_ms``) and the plain version. Returns the
+    measurements and both bounds."""
     import torch
     from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
     from orb_slam_fusion_tpu_torch.kernels.build import launcher
@@ -230,53 +199,37 @@ def time_match_call(label, uvr, mp_desc, kp_uvo, kp_desc, use_octave,
     M, N = uvr.shape[0], kp_uvo.shape[0]
     pairs = int(mask.sum().item())
     visible = int((uvr[:, 2] >= 0).sum().item())
-    outs = [torch.empty(M, dtype=torch.int32, device=uvr.device)
+    outs = [torch.full((M,), -7, dtype=torch.int32, device=uvr.device)
             for _ in range(3)]
+    fn = launcher("masked_match")
 
-    def raw(fn):
-        def go():
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = fn(uvr.data_ptr(), mp_desc.data_ptr(), kp_uvo.data_ptr(),
-                    kp_desc.data_ptr(), M, N, int(bool(use_octave)),
-                    outs[0].data_ptr(), outs[1].data_ptr(),
-                    outs[2].data_ptr(), stream)
-            if rc != 0:
-                raise RuntimeError(f"masked_match launch failed: CUDA error "
-                                   f"{rc}")
-        return go
+    def raw():                           # the kernel, without the wrapper
+        rc = fn(uvr.data_ptr(), mp_desc.data_ptr(), kp_uvo.data_ptr(),
+                kp_desc.data_ptr(), M, N, int(bool(use_octave)),
+                outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"masked_match launch failed: CUDA error {rc}")
 
     res = dict(call=label, M=M, N=N, visible_rows=visible,
                in_window_pairs=pairs, max_abs_err=err)
-    runs = {"kernel": raw(launcher("masked_match"))}
-    runs.update({tag: raw(fn) for tag, fn in (compare or {}).items()})
-    for tag, go in runs.items():
-        for o in outs:
-            o.fill_(-7)
-        go()
-        torch.cuda.synchronize()
-        if any(not torch.equal(o, w) for o, w in zip(outs, want)):
-            raise RuntimeError(f"{tag} disagrees with the plain version on "
-                               f"{label}")
-    turns = {tag: [] for tag in runs}
-    for _ in range(2):                   # in turns: kernel, others, ...
-        for tag, go in runs.items():
-            turns[tag].append(_graph_ms(go))
+    res["kernel_ms"] = _graph_ms(raw)
+    if any(not torch.equal(o, w) for o, w in zip(outs, want)):
+        raise RuntimeError(f"the timed launch disagrees with the plain "
+                           f"version on {label}")
     cur, mx = _sm_clocks_mhz()           # read beside the timing window
-    for tag, ts in turns.items():
-        key = "ms" if tag == "kernel" else f"{tag}_ms"
-        res[key], res[key + "_turns"] = min(ts), ts
     res["call_ms"] = _cuda_ms(lambda: mm.masked_match_cuda(
         uvr, mp_desc, kp_uvo, kp_desc, use_octave))
     res["plain_ms"] = _cuda_ms(lambda: mm.masked_match_folded_plain(
         uvr, mp_desc, kp_uvo, kp_desc))
     sms = torch.cuda.get_device_properties(uvr.device).multi_processor_count
     res.update(sm_clock_mhz=cur, sm_clock_max_mhz=mx, sms=sms)
-    res.update(match_bounds(M, N, pairs, sms, cur))
+    res.update(match_bounds(M, N, pairs, sms, mx))
     print("masked_match " + json.dumps(res), flush=True)
     return res
 
 
-def check_masked_match(dev, compare=None):
+def check_masked_match(dev):
     """Kernel vs plain version at M = 8192, N = 1024; returns the report."""
     import numpy as np
     import torch
@@ -305,15 +258,15 @@ def check_masked_match(dev, compare=None):
         if n_masked == 0 or n_ties == 0 or n_exact == 0:
             raise RuntimeError("the masked_match case lacks coverage")
         res = time_match_call(f"synthetic octave={octave}", uvr,
-                              t["mp_desc"], kp_uvo, t["kp_desc"], octave,
-                              compare)
+                              t["mp_desc"], kp_uvo, t["kp_desc"], octave)
     # the octave-gated synthetic case heads the kernels line
     return dict(
         name="masked_match", route="cuda",
         source="orb_slam_fusion_tpu_torch/csrc/masked_match.cu",
         replaces="orb_slam_fusion_tpu/frontend/pallas_match.py:42",
-        max_abs_err=res["max_abs_err"], ms=res["ms"],
-        call_ms=res["call_ms"], plain_ms=res["plain_ms"],
+        max_abs_err=res["max_abs_err"], ms=res["kernel_ms"],
+        kernel_ms=res["kernel_ms"], call_ms=res["call_ms"],
+        plain_ms=res["plain_ms"],
         bound_ms=res["bound_ms"],
         bound_by=res["bound_by"], dense_bound_ms=res["dense_bound_ms"],
         in_window_pairs=res["in_window_pairs"], library_ms=None, ok=True)
@@ -338,7 +291,7 @@ def capture_match_inputs(fn):
     return seen
 
 
-def run_main_path(dev, compare=None):
+def run_main_path(dev):
     """16 bench-width frames; returns (per-stage ms lists, launch counts,
     per-frame log, whether the last pose is finite, the per-call masked
     match measurements of one tracking step)."""
@@ -417,7 +370,7 @@ def run_main_path(dev, compare=None):
     if len(calls) != 3:
         raise RuntimeError(f"{len(calls)} masked-match calls in one tracking "
                            f"step, expected 3")
-    match_calls = [time_match_call(name, *args, compare=compare)
+    match_calls = [time_match_call(name, *args)
                    for name, args in zip(("coarse", "widened", "fine"),
                                          calls)]
 
@@ -487,13 +440,7 @@ def profile_stages(stages):
                     for e in top[:6]]}), flush=True)
 
 
-def main(argv=None):
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--compare-cu", action="append", default=[],
-                    metavar="TAG=PATH",
-                    help="another masked-match source to time in turns")
-    args = ap.parse_args(argv)
+def main():
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     import torch
@@ -517,14 +464,12 @@ def main(argv=None):
               flush=True)
     _phase("build", t0)
 
-    compare = {tag: load_compare(path, tag) for tag, path in
-               (c.split("=", 1) for c in args.compare_cu)}
     t0 = time.perf_counter()
-    report = check_masked_match(dev, compare)
+    report = check_masked_match(dev)
     _phase("kernels", t0)
 
     t0 = time.perf_counter()
-    stages, launches, log, finite, match_calls = run_main_path(dev, compare)
+    stages, launches, log, finite, match_calls = run_main_path(dev)
     for e in log:
         print("frame " + json.dumps(e), flush=True)
     _phase("main", t0)
@@ -560,8 +505,8 @@ def main(argv=None):
     report["launches"] = launches["masked_match"]
     report["launches_per_frame"] = launches["masked_match"] / FRAMES
     report["main_path_calls"] = [
-        {k: c[k] for k in ("call", "visible_rows", "in_window_pairs", "ms",
-                           "call_ms", "plain_ms", "bound_ms", "bound_by",
+        {k: c[k] for k in ("call", "visible_rows", "in_window_pairs",
+                           "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                            "dense_bound_ms")} for c in match_calls]
     print(json.dumps({"kernels": [report]}), flush=True)
     print(card, flush=True)

@@ -157,44 +157,36 @@ def _dot_plan(kind: str, rows: int, k: int, n: int):
 @functools.lru_cache(maxsize=64)
 def _taps(in_size: int, out_size: int, kind: str, rows: int,
           device: torch.device):
-    """Per output pixel, its non-zero taps and the order that sums them, on
-    ``device``: (plan, index (T, out) long, weight (T, out) float64, steps).
-    Columns with fewer than T taps are padded with weight 0 (adding an
-    exact 0 changes nothing). ``steps`` lists, per tap position t, where
-    its product goes: for a chain, the mask of columns whose k-block starts
-    at t; for lanes, (group, mask, first) per group that t feeds, ``first``
-    when no earlier tap of the column fed that group."""
+    """Per output pixel, its non-zero taps and the accumulators the
+    reference dot sums them in, on ``device``: (plan, index (T, out) long,
+    weight (T, C, out) float64). Accumulator c of a column holds the tap's
+    weight where the dot's order (``_dot_plan``) sends tap t to c, and an
+    exact 0 elsewhere: a fused multiply-add of a finite pixel with weight 0
+    leaves an accumulator's bits as they were, and one onto +0 is the
+    rounded product, so every accumulator runs over all T taps unmasked.
+    For a chain, c counts k-blocks from the column's first one; for lanes,
+    c is the lane and c = lanes the remainder."""
     w = resize_weights(in_size, out_size)
     nz = [np.nonzero(w[:, j])[0] for j in range(out_size)]
     T = max(1, max(len(t) for t in nz))
     idx = np.zeros((T, out_size), np.int64)
-    wt = np.zeros((T, out_size), np.float64)
     ok = np.zeros((T, out_size), bool)
     for j, ks in enumerate(nz):
         idx[:len(ks), j] = ks
-        wt[:len(ks), j] = w[ks, j]
         ok[:len(ks), j] = True
-    as_t = lambda a: torch.from_numpy(a).to(device)    # noqa: E731
     plan = _dot_plan(kind, rows, in_size, out_size)
-    steps = []
     if plan[0] == "chain":
         block = np.searchsorted(np.asarray(plan[1]), idx, side="right") - 1
-        for t in range(T):
-            new = ok[t] & (block[t] != block[t - 1]) if t else None
-            steps.append(as_t(new) if new is not None and new.any()
-                         else None)
+        acc = block - block[0]
+        n_acc = int(acc[ok].max()) + 1
     else:
-        lanes, main = plan[1], plan[2]
-        group = np.where(idx < main, idx % lanes, lanes)
-        for t in range(T):
-            feeds = []
-            for g in range(lanes + 1):
-                m = ok[t] & (group[t] == g)
-                if m.any():
-                    before = (ok[:t] & (group[:t] == g)).any(axis=0)
-                    feeds.append((g, as_t(m), not (m & before).any()))
-            steps.append(feeds)
-    return plan, as_t(idx), as_t(wt), steps
+        acc = np.where(idx < plan[2], idx % plan[1], plan[1])
+        n_acc = plan[1] + 1
+    t, j = np.nonzero(ok)
+    wt = np.zeros((T, n_acc, out_size))
+    wt[t, acc[t, j], j] = w[idx[t, j], j]
+    as_t = lambda a: torch.from_numpy(a).to(device)    # noqa: E731
+    return plan, as_t(idx), as_t(wt)
 
 
 def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
@@ -203,38 +195,25 @@ def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
     product is exact in float64, so (p + c) in float64 rounded to float32
     stands for a fused multiply-add (see the module docstring)."""
     rows = out_size if kind == "h" else x.shape[0]
-    plan, idx, wt, steps = _taps(x.shape[1], out_size, kind, rows, x.device)
-    xd = x.double()
-    prods = [xd[:, idx[t]] * wt[t] for t in range(idx.shape[0])]
-    if plan[0] == "chain":
-        done, cur = None, prods[0].float()
-        for t in range(1, len(prods)):
-            if steps[t] is not None:       # a new k-block: bank the chain
-                if done is None:
-                    done = torch.zeros_like(cur)
-                done = torch.where(steps[t], done + cur, done)
-                cur = torch.where(steps[t], torch.zeros_like(cur), cur)
-            cur = (prods[t] + cur.double()).float()
-        return cur if done is None else done + cur
-    lanes = plan[1]
-    zero = torch.zeros((x.shape[0], out_size), dtype=torch.float32,
-                       device=x.device)
-    acc = [zero] * (lanes + 1)
-    for t, feeds in enumerate(steps):
-        pf = prods[t].float()              # the product, rounded once
-        for g, m, first in feeds:
-            if g == lanes:                 # the remainder: mul, then add
-                val = acc[g] + pf
-            elif first:                    # a lane's first product
-                val = pf
-            else:                          # interleaved FMA chains
-                val = (prods[t] + acc[g].double()).float()
-            acc[g] = torch.where(m, val, acc[g])
-    if lanes == 4:
-        main = (acc[0] + acc[1]) + (acc[2] + acc[3])
+    plan, idx, wt = _taps(x.shape[1], out_size, kind, rows, x.device)
+    prods = x.double()[:, idx].unsqueeze(2) * wt       # (R, T, C, out)
+    if plan[0] == "lanes":             # the remainder: mul, then add
+        prods[:, :, -1] = prods[:, :, -1].float()
+    acc = torch.zeros(prods[:, 0].shape, dtype=torch.float32,
+                      device=x.device)
+    for t in range(idx.shape[0]):      # one fused multiply-add per tap
+        torch.add(prods[:, t], acc, out=acc)
+    a = acc.unbind(1)
+    if plan[0] == "chain":             # the k-blocks, in order
+        out = a[0]
+        for blk in a[1:]:
+            out = out + blk
+        return out
+    if plan[1] == 4:                   # the lanes, summed pairwise
+        main = (a[0] + a[1]) + (a[2] + a[3])
     else:
-        main = acc[0] + acc[1]
-    return main + acc[lanes]
+        main = a[0] + a[1]
+    return main + a[-1]
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
