@@ -37,8 +37,39 @@ Phases, each timed:
                After the counted run, each stage runs once more under
                torch.profiler, which prints its device-busy time, kernel
                launches and top kernels.
-  5. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
+  5. features - ORB extraction of the bench image, and of one image-session
+               frame, on the card and on the host CPU through the port:
+               keypoints, octaves, responses, angles and descriptors must
+               be bit-identical.
+  6. session - the monocular session through ``MonoTracker.process_features``
+               at ``SlamConfig``'s default widths (480x752, 1024 features,
+               8 octaves, 8192 map points, 256 keyframe slots, ba_window 8,
+               background local BA) with ``loop_closing=False``, on the
+               tracker e2e sequence (the port's ``sim``: corridor world, 80
+               frames, 4000 points, seed 3). Its inputs must hash to the
+               golden's (``tests/torch_goldens/mono_session_480x752.json``,
+               written by the JAX package on the CPU); one line per frame
+               gives state, inliers, keyframes, map points and kernel
+               launches beside the golden's. The run fails unless the
+               session initializes, tracks as many frames as the golden
+               with the golden's state on every frame, ends within 2
+               keyframes and 5% of map points of it, its ATE after init
+               is within the golden's tolerance, and the kernel launched
+               on every tracked frame. Then the stage
+               times (``utils/timing``), the per-frame time, and the three
+               masked-match calls of the last frame's tracking step, each
+               checked bit-exact and timed alone at the session's map size.
+  7. image_session - ``process_image`` on the image e2e sequence (50
+               rendered 240x376 frames, gentle world, 512 features):
+               extraction, pyramid and IC angle run inside the session on
+               the card. It must pass that test's gates: init within the
+               first 25 frames, >= 75% of the frames after init tracked,
+               ATE < 0.5 m; the golden's run is printed beside it.
+  8. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
                the ``{"ok": true, ...}`` line last.
+
+Each path's kernel launches are counted from 0 just before it runs and
+read just after; each must launch the kernel.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -414,6 +445,340 @@ def run_main_path(dev):
     return stages, launches, log, finite, match_calls
 
 
+GOLDEN_DIR = os.path.join(HERE, "tests", "torch_goldens")
+# the sessions (tests/test_torch_goldens.py holds the golden files to
+# these values)
+SESSION_WORLD = dict(n_frames=80, n_points=4000, seed=3)
+SESSION_RENDER = dict(n_features=1024, pixel_noise=0.3, desc_bit_flips=3,
+                      dropout=0.08, seed=11)
+# |ATE - golden ATE|. The session amplifies rounding: its ATE moves with
+# any change in float32 rounding, in both packages. At these widths
+# (tests/torch_session_spread.py, on the CPU) the reference gives 3.46 mm,
+# 2.19 mm with XLA's fast-math rounding; the port 2.17, 15.7 and 4.32 mm
+# at 1, 3 and 8 torch threads. The gate is set by that spread; the e2e
+# test's own gate is 30 mm.
+SESSION_ATE_TOL_M = 0.02
+# the final keyframe and map-point counts against the golden's: what
+# tests/test_torch_session.py holds the free-running CPU session to
+SESSION_KF_TOL = 2
+SESSION_MP_RTOL = 0.05
+IMAGE_WORLD = dict(n_frames=50, n_points=2500, seed=1)
+IMAGE_CONFIG = dict(cam_params=(300.0, 300.0, 188.0, 120.0),
+                    image_size=(240, 376), n_features=512, ba_window=6,
+                    loop_closing=False, init_min_matches=50,
+                    init_min_inliers=35)
+
+
+def _sha(*arrays):
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str(a.dtype).encode() + str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _golden(name):
+    with open(os.path.join(GOLDEN_DIR, name)) as fh:
+        return json.load(fh)
+
+
+def _gentle_positions(T):
+    import numpy as np
+    s = np.linspace(0, 1, T)
+    return np.stack([0.5 * np.sin(2 * np.pi * s),
+                     0.1 * np.sin(4 * np.pi * s), 3.0 * s],
+                    axis=1).astype(np.float32)
+
+
+def _image_config():
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig
+    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
+    c = dict(IMAGE_CONFIG)
+    return SlamConfig(orb=OrbParams(n_features=c.pop("n_features")), **c)
+
+
+def check_features(dev):
+    """ORB extraction on the card and on the host CPU, through the port,
+    must agree bit for bit (the CPU is pinned to the reference by the
+    tests): the bench image and one image-session frame."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import sim, synth
+    from orb_slam_fusion_tpu_torch.frontend.extractor import (
+        OrbParams, extract_features)
+
+    world = sim.world_from_trajectory(
+        _gentle_positions(IMAGE_WORLD["n_frames"]),
+        n_points=IMAGE_WORLD["n_points"], seed=IMAGE_WORLD["seed"])
+    cfg = _image_config()
+    cases = [("bench 480x752", synth.textured_image(
+        np.random.RandomState(0), IMG_H, IMG_W),
+        OrbParams(n_features=N_FEAT, num_levels=N_LEVELS)),
+        ("image-session frame 20, 240x376",
+         sim.render_image(world, 20, cfg.cam_params, cfg.image_size),
+         cfg.orb)]
+    for label, img, params in cases:
+        card = extract_features(torch.from_numpy(img).to(dev), params)
+        host = extract_features(torch.from_numpy(img), params)
+        for field in card._fields:
+            a, b = getattr(card, field).cpu(), getattr(host, field)
+            if not torch.equal(a, b):
+                raise RuntimeError(f"extraction of the {label} image: "
+                                   f"{field} differs between the card and "
+                                   f"the host CPU in "
+                                   f"{int((a != b).sum())} entries")
+        print(f"features: {label}: {int(host.valid.sum())} keypoints, "
+              f"uv/octave/response/angle/desc/valid bit-identical on the "
+              f"card and the host CPU", flush=True)
+
+
+def _mean(xs):
+    return statistics.mean(xs) if xs else None
+
+
+def _run_frames(step, tracker, make, golden, label):
+    """Drive ``step`` (the tracker's ``process_features`` or
+    ``process_image``) over the golden's frames, ``make(k)`` giving frame
+    k's (inputs, timestamp, hash); one line per frame beside the golden's.
+    Returns (records, per-frame ms, launches per frame, whether each frame
+    inserted a keyframe)."""
+    import torch
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+
+    recs, ms, launched = [], [], []
+    for k in range(len(golden["frames"])):
+        inputs, ts, digest = make(k)
+        g = golden["frames"][k]
+        if digest != g["inputs_sha256"]:
+            raise RuntimeError(f"{label} frame {k}: the port's sim gave other "
+                               f"inputs than the golden's")
+        before = mm.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = step(inputs, ts)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launched.append(mm.launches - before)
+        line = dict(frame=k, state=rec.state, inliers=int(rec.tracked),
+                    n_kf=int(tracker.map.n_kf), n_mp=int(tracker.map.n_mp),
+                    launches=launched[-1], ms=ms[-1],
+                    golden=[g["state"], g["tracked"], g["n_kf"], g["n_mp"]])
+        print(f"{label} " + json.dumps(line), flush=True)
+        recs.append((rec, line["n_kf"]))
+    new_kf = [r.state == "ok" and n > p for (r, n), (_, p) in
+              zip(recs, [(None, 0)] + recs[:-1])]
+    return [r for r, _ in recs], ms, launched, new_kf
+
+
+def _summary(label, tracker, world, recs, golden, ms, launched, new_kf):
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.io import align_horn, ate_rmse
+
+    states = [r.state for r in recs]
+    tracked = sum(s in ("ok", "init-done") for s in states)
+    start = states.index("init-done") if "init-done" in states else None
+    ate = None
+    if start is not None:
+        traj = tracker.trajectory_tum()
+        ate = float(ate_rmse(traj[start:, 1:4],
+                             sim.gt_positions(world)[start:len(traj)]))
+    diff = [k for k, (r, g) in enumerate(zip(recs, golden["frames"]))
+            if (r.state, int(r.tracked)) != (g["state"], g["tracked"])]
+    # the two estimated trajectories against each other after init, each
+    # similarity-aligned to the ground truth (metres): how far the port's
+    # run wandered from the reference's
+    traj_rms = None
+    if start is not None and start == golden["init_frame"]:
+        import numpy as np
+        gt = sim.gt_positions(world)[start:len(recs)]
+
+        def aligned(est):
+            sc, R, t = align_horn(est, gt)
+            return (sc * (R @ np.asarray(est, np.float64).T)).T + t
+
+        d = aligned(tracker.trajectory_tum()[start:, 1:4]) - aligned(
+            np.asarray(golden["trajectory_tum"])[start:len(recs), 1:4])
+        traj_rms = float(np.sqrt((d ** 2).sum(axis=1).mean()))
+    out = dict(path=label, init_frame=start, tracked=tracked,
+               golden_tracked=golden["tracked"], ate_m=ate,
+               golden_ate_m=golden["ate_m"],
+               trajectory_rms_vs_golden_m=traj_rms,
+               n_kf=int(tracker.map.n_kf),
+               n_mp=int(tracker.map.n_mp), golden_n_kf=golden["n_kf"],
+               golden_n_mp=golden["n_mp"],
+               first_frame_differing_from_golden=diff[0] if diff else None,
+               frames_differing_from_golden=len(diff),
+               launches=sum(launched),
+               ok_frames=sum(s == "ok" for s in states),
+               launches_tracked=sum(n for r, n in zip(recs, launched)
+                                    if r.state == "ok"),
+               frame_ms_mean=statistics.mean(ms),
+               frame_ms_median=statistics.median(ms),
+               frame_ms_max=max(ms), frame_ms_first=ms[0],
+               # tracked frames that inserted a keyframe, and those that
+               # did not (mapping, culling and the robust phase of local BA
+               # ride on the former)
+               keyframe_frames=sum(new_kf),
+               keyframe_frame_ms_mean=_mean(
+                   [t for t, n in zip(ms, new_kf) if n]),
+               plain_tracked_frame_ms_mean=_mean(
+                   [t for t, n, r in zip(ms, new_kf, recs)
+                    if r.state == "ok" and not n]))
+    print(f"{label} summary " + json.dumps(out), flush=True)
+    untracked = [k for k, (r, n) in enumerate(zip(recs, launched))
+                 if r.state == "ok" and n == 0]
+    if untracked:
+        raise RuntimeError(f"{label}: tracked frames {untracked} launched no "
+                           f"masked-match kernel")
+    return out, states, start, ate
+
+
+def run_session(dev):
+    """The monocular session at default widths against the JAX golden."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
+    from orb_slam_fusion_tpu_torch.engine import step
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.map.convert import features_from_numpy
+    from orb_slam_fusion_tpu_torch.utils.timing import STAGES
+
+    golden = _golden("mono_session_480x752.json")
+    cfg = SlamConfig(loop_closing=False)
+    world = sim.make_corridor_world(**SESSION_WORLD)
+    r = dict(SESSION_RENDER)
+    nf = r.pop("n_features")
+    tracker = MonoTracker(cfg, device=dev)
+
+    def make(k):
+        a = sim.render_frame_numpy(world, k, cfg.cam_params, cfg.image_size,
+                                   nf, **r)
+        return (features_from_numpy(a, dev), float(world.timestamps[k]),
+                _sha(*a.values()))
+
+    STAGES.reset()
+    STAGES.enable()
+    mm.launches = 0                      # counts start here ...
+    recs, ms, launched, new_kf = _run_frames(
+        tracker.process_features, tracker, make, golden, "session")
+    total = mm.launches                  # ... and are read here
+    STAGES.disable()
+    print("session stages (ms, 480x752):\n" + STAGES.report(), flush=True)
+    print("session stage ms " + json.dumps(
+        {k: [STAGES.count[k], STAGES.total[k] * 1e3 / STAGES.count[k]]
+         for k in STAGES.total}), flush=True)
+    out, states, start, ate = _summary("session", tracker, world, recs,
+                                       golden, ms, launched, new_kf)
+    if total != out["launches"]:
+        raise RuntimeError("launches outside the frames' own counts")
+    if start is None:
+        raise RuntimeError("the session never initialized")
+    if out["tracked"] != golden["tracked"]:
+        raise RuntimeError(f"the session tracked {out['tracked']} frames, "
+                           f"the golden {golden['tracked']}")
+    odd = [k for k, (s, g) in enumerate(zip(states, golden["frames"]))
+           if s != g["state"]]
+    if odd:
+        raise RuntimeError(f"session frames {odd} have another state than "
+                           f"the golden's")
+    if abs(out["n_kf"] - golden["n_kf"]) > SESSION_KF_TOL:
+        raise RuntimeError(f"session ends with {out['n_kf']} keyframes, the "
+                           f"golden {golden['n_kf']}")
+    if abs(out["n_mp"] - golden["n_mp"]) > SESSION_MP_RTOL * golden["n_mp"]:
+        raise RuntimeError(f"session ends with {out['n_mp']} map points, "
+                           f"the golden {golden['n_mp']}")
+    if abs(ate - golden["ate_m"]) > SESSION_ATE_TOL_M:
+        raise RuntimeError(f"session ATE {ate} m vs the golden's "
+                           f"{golden['ate_m']} m (tolerance "
+                           f"{SESSION_ATE_TOL_M} m)")
+    # one plain tracked frame and one keyframe frame under the profiler,
+    # each from a copy of the final state (re-tracking the last frame)
+    profile_session_frames(tracker, make(SESSION_WORLD["n_frames"] - 1))
+    # the kernel alone at the session's map size: the three calls of one
+    # more tracking step from the final state (counts not touched)
+    f = sim.render_frame(world, SESSION_WORLD["n_frames"] - 1,
+                         cfg.cam_params, cfg.image_size, nf, device=dev, **r)
+    pred = tracker.cur_pose
+    calls = capture_match_inputs(lambda: tracker._frame_update(
+        tracker.map.mp_visible.clone(), tracker.map.mp_found.clone(),
+        tracker.cur_pose, pred, f))
+    if len(calls) != step.MATCH_LAUNCHES_PER_FRAME:
+        raise RuntimeError(f"{len(calls)} masked-match calls in a session "
+                           f"tracking step")
+    out["match_calls"] = [
+        {k: c[k] for k in ("call", "M", "N", "visible_rows",
+                           "in_window_pairs", "kernel_ms", "call_ms",
+                           "plain_ms", "bound_ms", "bound_by")}
+        for c in (time_match_call(f"session {name}", *args)
+                  for name, args in zip(("coarse", "widened", "fine"),
+                                        calls))]
+    return out
+
+
+def run_image_session(dev):
+    """process_image over the image e2e sequence, held to its gates."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+
+    golden = _golden("image_session_240x376.json")
+    cfg = _image_config()
+    T = IMAGE_WORLD["n_frames"]
+    world = sim.world_from_trajectory(_gentle_positions(T),
+                                      n_points=IMAGE_WORLD["n_points"],
+                                      seed=IMAGE_WORLD["seed"])
+    tracker = MonoTracker(cfg, device=dev)
+
+    def make(k):
+        img = sim.render_image(world, k, cfg.cam_params, cfg.image_size)
+        return img, float(world.timestamps[k]), _sha(img)
+
+    mm.launches = 0                      # counts start here ...
+    recs, ms, launched, new_kf = _run_frames(
+        tracker.process_image, tracker, make, golden, "image_session")
+    total = mm.launches                  # ... and are read here
+    out, states, start, ate = _summary("image_session", tracker, world, recs,
+                                       golden, ms, launched, new_kf)
+    if total != out["launches"]:
+        raise RuntimeError("launches outside the frames' own counts")
+    if start is None or start >= T // 2:
+        raise RuntimeError(f"image session initialized at {start}")
+    if out["tracked"] < int((T - start) * 0.75):
+        raise RuntimeError(f"image session tracked {out['tracked']} of "
+                           f"{T - start} frames after init")
+    if not ate < 0.5:
+        raise RuntimeError(f"image session ATE {ate} m")
+    return out
+
+
+def profile_session_frames(tracker, frame):
+    """Device-busy time and launches of one session frame of each kind:
+    a tracked frame that inserts no keyframe, and one that does (forced by
+    the keyframe interval), each run on its own copy of ``tracker``."""
+    import copy
+    feats, ts, _ = frame
+
+    def copies(force_kf):
+        out = []
+        for _ in range(2):               # warm-up, then the profiled run
+            c = copy.deepcopy(tracker)
+            c._last_kf_tracked_dev = None
+            if force_kf:
+                c.frames_since_kf = c.cfg.kf_max_interval
+            else:
+                c.frames_since_kf, c.last_kf_tracked = 1, 0
+            out.append(c)
+        return out
+
+    runs = {"session plain frame": copies(False),
+            "session keyframe frame": copies(True)}
+    profile_stages({name: (lambda name=name: runs[name].pop()
+                           .process_features(feats, ts))
+                    for name in runs})
+
+
 def profile_stages(stages):
     """Per stage, one run under torch.profiler: wall ms, device-busy ms
     (sum of kernel times), kernel launches and the top kernels."""
@@ -497,13 +862,32 @@ def main():
         raise RuntimeError(f"{n_kf_events} keyframe events")
 
     t0 = time.perf_counter()
+    check_features(dev)
+    _phase("features", t0)
+
+    t0 = time.perf_counter()
+    session = run_session(dev)
+    _phase("session", t0)
+
+    t0 = time.perf_counter()
+    image = run_image_session(dev)
+    _phase("image_session", t0)
+
+    t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
              stages.items()}
     print("stage ms (mean over the 16-frame run; mapping and local_ba per "
           "keyframe event): " + json.dumps(table), flush=True)
     print("stage ms (all): " + json.dumps(stages), flush=True)
-    report["launches"] = launches["masked_match"]
-    report["launches_per_frame"] = launches["masked_match"] / FRAMES
+    report["launches"] = session["launches"]
+    report["launches_by_path"] = {
+        "bench_frames": launches["masked_match"],
+        "session": session["launches"],
+        "image_session": image["launches"]}
+    report["launches_per_bench_frame"] = launches["masked_match"] / FRAMES
+    report["session_launches_per_tracked_frame"] = (
+        session["launches_tracked"] / max(session["ok_frames"], 1))
+    report["session_calls"] = session["match_calls"]
     report["main_path_calls"] = [
         {k: c[k] for k in ("call", "visible_rows", "in_window_pairs",
                            "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,6 +13,12 @@ octaves and descriptors. Two places need care:
   each pair directly and compares them, which gives the same bits without
   the 60x wider product (and without any TF32 question).
 
+* The IC angle sums its moments in the order the reference's compiled
+  einsum does (XLA:CPU, jax 0.9.0), and takes the arctangent as glibc's
+  ``atan2f``, which XLA:CPU calls: see ``ic_angle`` and ``atan2f``. Both
+  are written as single-rounding float32 steps, so the CPU and CUDA give
+  the reference's angle bits, and with them its steering bins.
+
 Descriptors are (N, 8) int32 holding the reference's uint32 bit patterns.
 """
 
@@ -139,17 +145,119 @@ def gather_patches(img: torch.Tensor, yx: torch.Tensor,
     return img.reshape(-1)[rows * w + cols]                # (N,S,S)
 
 
+def _f32_words(*words: int):
+    return [float(np.array(w, np.uint32).view(np.float32)) for w in words]
+
+
+# glibc 2.36 sysdeps/ieee754/flt-32/s_atanf.c and e_atan2f.c (fdlibm), the
+# float32 values its compiled tables hold (aT[0] is 0x3eaaaaab)
+_ATANHI = _f32_words(0x3eed6338, 0x3f490fda, 0x3f7b985e, 0x3fc90fda)
+_ATANLO = _f32_words(0x31ac3769, 0x33222168, 0x33140fb4, 0x33a22168)
+_AT = _f32_words(0x3eaaaaab, 0xbe4ccccd, 0x3e124925, 0xbde38e38, 0x3dba2e6e,
+                 0xbd9d8795, 0x3d886b35, 0xbd6ef16b, 0x3d4bda59, 0xbd15a221,
+                 0x3c8569d7)
+_PI, _PI_LO, _PI_O_2 = _f32_words(0x40490fdb, 0xb3bbbd2e, 0x3fc90fdb)
+_ATAN_INF = float(np.float32(_ATANHI[3]) + np.float32(_ATANLO[3]))
+_PI_O_2_LO = float(np.float32(_PI_O_2) + np.float32(0.5) * np.float32(_PI_LO))
+
+
+def _atanf_pos(t: torch.Tensor) -> torch.Tensor:
+    """glibc's ``atanf`` of non-negative float32 ``t``, branch-free: every
+    argument reduction is computed and the right one selected, each step a
+    single float32 rounding."""
+    it = t.view(torch.int32)
+    one = torch.ones_like(t)
+    red = [(t * 2.0 - one) / (t + 2.0),          # 7/16 <= t < 11/16
+           (t - one) / (t + one),                # 11/16 <= t < 19/16
+           (t - 1.5) / (one + t * 1.5),          # 19/16 <= t < 39/16
+           -one / t]                             # t >= 39/16
+    idd = torch.where(it < 0x3F300000, 0, torch.where(
+        it < 0x3F980000, 1, torch.where(it < 0x401C0000, 2, 3)))
+    small = it < 0x3EE00000                      # t < 7/16: no reduction
+    x = torch.where(small, t, torch.stack(red).gather(
+        0, idd[None].long())[0])
+    z = x * x
+    w = z * z
+    a = torch.full_like(t, _AT[10])
+    for c in (_AT[8], _AT[6], _AT[4], _AT[2], _AT[0]):
+        a = w * a + c
+    b = torch.full_like(t, _AT[9])
+    for c in (_AT[7], _AT[5], _AT[3], _AT[1]):
+        b = w * b + c
+    s = z * a + w * b
+    hi = torch.tensor(_ATANHI, device=t.device)[idd.long()]
+    lo = torch.tensor(_ATANLO, device=t.device)[idd.long()]
+    out = torch.where(small, x - x * s, hi - ((x * s - lo) - x))
+    out = torch.where(it < 0x31000000, t, out)   # t < 2^-29
+    return torch.where(it >= 0x4C000000, torch.full_like(t, _ATAN_INF), out)
+
+
+def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """glibc's ``atan2f`` (what XLA:CPU calls for ``jnp.arctan2``) for
+    finite float32 tensors (NaN propagates), bit for bit on any device:
+    ``torch.atan2`` and CUDA's ``atan2f`` round differently."""
+    hx = x.view(torch.int32)
+    hy = y.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    iy = hy & 0x7FFFFFFF
+    k = (iy - ix) >> 23
+    z = _atanf_pos(torch.abs(y / torch.where(ix == 0, torch.ones_like(x),
+                                             x)))
+    z = torch.where(k > 60, torch.full_like(z, _PI_O_2_LO), z)
+    z = torch.where((hx < 0) & (k < -60), torch.zeros_like(z), z)
+    pi = torch.full_like(z, _PI)
+    neg_x = hx < 0
+    neg_y = hy < 0
+    out = torch.where(neg_x, torch.where(neg_y, (z - _PI_LO) - pi,
+                                         pi - (z - _PI_LO)),
+                      torch.where(neg_y, -z, z))
+    # y = 0: +-0 towards +x, +-pi towards -x; x = 0: +-pi/2
+    out = torch.where(iy == 0, torch.where(neg_x, torch.where(neg_y, -pi, pi),
+                                           y), out)
+    out = torch.where((ix == 0) & (iy != 0),
+                      torch.where(neg_y, -_PI_O_2, _PI_O_2).to(z.dtype), out)
+    return torch.where(torch.isnan(x) | torch.isnan(y), x + y, out)
+
+
 def ic_angle(patches: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation atan2(m01, m10) over a circular
-    patch, (N, S, S) -> (N,) radians."""
-    size = patches.shape[-1]
+    patch, (N, S, S) -> (N,) radians, with the reference's bits.
+
+    The reference's ``einsum`` compiles (XLA:CPU, jax 0.9.0) into one loop
+    fusion per moment: the masked patch summed over its other axis in
+    increasing index, then a dot with the coordinates as fused
+    multiply-adds. For ``m01`` that dot is one chain in increasing row;
+    for ``m10`` it runs in 8 lanes over the first S - S % 8 columns
+    (column x into lane x % 8), the lanes summed pairwise (0-3 + 4-7, then
+    halves again), and the last S % 8 columns chained on in order. The
+    products of a moment with an integer coordinate are exact in float64,
+    so each fused multiply-add is a float64 add rounded once to float32.
+    """
+    n, size = patches.shape[0], patches.shape[-1]
     r = (size - 1) // 2
-    coords = torch.arange(size, dtype=patches.dtype,
-                          device=patches.device) - r
-    wimg = patches * _on_device("umax", size, patches.device)
-    m10 = torch.sum(wimg.sum(dim=1) * coords, dim=-1)
-    m01 = torch.sum(wimg.sum(dim=2) * coords, dim=-1)
-    return torch.atan2(m01, m10)
+    dev = patches.device
+    wimg = patches * _on_device("umax", size, dev)          # exact: 0/1
+    both = torch.stack([wimg, wimg.transpose(1, 2)])        # (2, N, S, S)
+    acc = torch.zeros((2, n, size), dtype=torch.float32, device=dev)
+    for i in range(size):          # [0]: sum over rows, [1]: over columns
+        acc += both[:, :, i]
+    coords = torch.arange(size, dtype=torch.float64, device=dev) - r
+    prods = acc.double() * coords                           # exact
+    p10, p01 = prods[0], prods[1]
+    m01 = torch.zeros(n, dtype=torch.float32, device=dev)
+    for j in range(size):
+        torch.add(p01[:, j], m01, out=m01)
+    main = size - size % 8
+    lanes = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+    for j0 in range(0, main, 8):
+        torch.add(p10[:, j0:j0 + 8], lanes, out=lanes)
+    while lanes.shape[1] > 1:
+        h = lanes.shape[1] // 2
+        lanes = lanes[:, :h] + lanes[:, h:]
+    m10 = lanes[:, 0].contiguous()
+    for j in range(main, size):
+        torch.add(p10[:, j], m10, out=m10)
+    return atan2f(m01, m10)
 
 
 BRIEF_ANGLE_BINS = 60  # 6-degree steering quantization
@@ -270,6 +378,7 @@ def extract_from_pyramid(levels, params: OrbParams = OrbParams()
                                  params.scale_factor)
     dev = levels[0].device
     outs = {k: [] for k in Features._fields}
+    patches = []
     for l, (lvl_img, budget) in enumerate(zip(levels, budgets)):
         if budget == 0:
             continue
@@ -279,8 +388,7 @@ def extract_from_pyramid(levels, params: OrbParams = OrbParams()
         yx, resp, valid = select_keypoints(
             score, budget, params.cell_size, params.per_cell_k,
             PATCH_RADIUS + 1)
-        patches = gather_patches(pyr_mod.gaussian_blur(lvl_img), yx)
-        ang = ic_angle(patches)
+        patches.append(gather_patches(pyr_mod.gaussian_blur(lvl_img), yx))
         xy = torch.stack([yx[:, 1].to(torch.float32),
                           yx[:, 0].to(torch.float32)], dim=-1)
         if params.subpixel:
@@ -289,9 +397,12 @@ def extract_from_pyramid(levels, params: OrbParams = OrbParams()
         outs["response"].append(resp)
         outs["octave"].append(torch.full((budget,), l, dtype=torch.int32,
                                          device=dev))
-        outs["angle"].append(ang)
-        outs["desc"].append(brief_descriptors(patches, ang))
         outs["valid"].append(valid)
+    # angles and descriptors of all levels at once (each keypoint's are
+    # its own: batching changes no bits, only the launch count)
+    patches = torch.cat(patches)
+    outs["angle"] = [ic_angle(patches)]
+    outs["desc"] = [brief_descriptors(patches, outs["angle"][0])]
     n = params.n_features
     return Features(**{k: torch.cat(v)[:n] for k, v in outs.items()})
 

@@ -20,10 +20,14 @@ bit the same:
   FMA chains summed pairwise plus a separately rounded tail.
 
 These rules were read off the reference by probing its summation order.
-The 480x752 bench pyramid and the 120x160 test images, every shape the
-port runs, are pinned bit-exact by ``tests/test_torch_frontend.py``.
-Portrait images contract in the other order, and some small sizes fall
-into another blocking regime; neither is pinned (ROADMAP.md, C1). The
+The pyramids of the image sizes in ``VERIFIED_SIZES`` (120x160, 240x376
+and 480x752, every shape the port runs, among them) are pinned bit-exact
+by ``tests/test_torch_frontend.py``. Other sizes reach orders not
+reproduced yet (ROADMAP.md, C3): portrait images contract width first
+with both dot operands transposed, and some landscape sizes (240x320,
+375x1242, 480x480) reach another blocking regime at their deeper levels.
+``resize_bilinear`` raises for any step outside the verified pyramids
+rather than return other bits. The
 fused multiply-adds go through float64 (exact product, then two
 roundings), the same bits on every device; in the rare case where the
 float64 sum lands on a float32 tie they can differ from a true FMA by one
@@ -216,11 +220,44 @@ def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
     return main + a[-1]
 
 
+# Image sizes whose 8-level, scale-1.2 pyramids are bit-exact against the
+# reference's (tests/torch_pyramid_probe.py; jax 0.9.0 on the CPU), each
+# pinned by tests/test_torch_frontend.py. Other sizes, portrait ones among
+# them, reach dot orders not reproduced yet (ROADMAP C3).
+VERIFIED_SIZES = ((96, 128), (100, 200), (120, 160), (240, 376), (360, 640),
+                  (370, 1226), (376, 752), (376, 1241), (400, 640),
+                  (480, 640), (480, 752), (480, 848), (540, 960),
+                  (600, 800), (720, 1280), (768, 1024), (800, 848),
+                  (1080, 1920))
+
+
+@functools.lru_cache(maxsize=1)
+def _verified_steps() -> frozenset:
+    """The (input shape, output shape) pairs of the verified pyramids."""
+    steps = set()
+    for h, w in VERIFIED_SIZES:
+        shapes = level_shapes(h, w, 8, 1.2)
+        steps.update(zip(shapes[:-1], shapes[1:]))
+    return frozenset(steps)
+
+
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
                     ) -> torch.Tensor:
     """``jax.image.resize(img, shape, "bilinear")`` for a 2-D image, with
-    the reference's bits on the CPU (height first, as for landscape
-    images)."""
+    the reference's bits. Raises for a resize that is not a step of a
+    verified pyramid (``VERIFIED_SIZES``) rather than return other bits."""
+    step = (tuple(img.shape), (int(shape[0]), int(shape[1])))
+    if step not in _verified_steps():
+        raise NotImplementedError(
+            f"resize {step[0][0]}x{step[0][1]} -> {step[1][0]}x{step[1][1]} "
+            f"is not a step of a pyramid verified to reproduce the "
+            f"reference's bits (ROADMAP C3)")
+    return _resize_height_first(img, shape)
+
+
+def _resize_height_first(img: torch.Tensor, shape: Tuple[int, int]
+                         ) -> torch.Tensor:
+    """The resize in the landscape order: height pass, then width pass."""
     h, w = img.shape
     out = img
     if shape[0] != h:

@@ -91,3 +91,50 @@ def features_from_numpy(fields: Dict[str, np.ndarray], device=None
 
 def features_to_numpy(f: Features) -> Dict[str, np.ndarray]:
     return {n: _to_numpy(n, getattr(f, n)) for n in Features._fields}
+
+
+def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
+    """Load a session's state, as numpy, into a port ``MonoTracker``.
+
+    ``state`` holds what a reference ``MonoTracker`` carries between frames,
+    with poses as (R, t) pairs: ``map`` (``map_state_to_numpy`` fields),
+    ``state`` (a ``TrackState`` name), ``cur_pose``, ``velocity``,
+    ``last_pose`` (or None), ``last_kf_id``, ``last_kf_tracked``,
+    ``last_kf_tracked_dev`` (the deferred mapping statistic, or None),
+    ``frames_since_kf``, ``frame_id``, ``cur_obs`` (or None), ``lost_since``,
+    ``ref_feats`` (Features fields, or None), ``ref_timestamp``,
+    ``traj_rel`` ([(timestamp, kf, (R, t))]) and ``trajectory``
+    ([(timestamp, (R, t), tracked, state string)]). A background local BA
+    in flight does not travel: drain it on the source side first.
+    """
+    from ..engine.tracker import FrameRecord, TrackState
+
+    dev = tracker.device
+    tracker._pending_lba = None
+    tracker.map = map_state_from_numpy(state["map"], dev)
+    tracker.state = TrackState[state["state"]]
+    tracker.cur_pose = se3_from_numpy(state["cur_pose"], dev)
+    tracker.velocity = se3_from_numpy(state["velocity"], dev)
+    tracker.last_pose = (None if state["last_pose"] is None
+                         else se3_from_numpy(state["last_pose"], dev))
+    tracker.last_kf_id = int(state["last_kf_id"])
+    tracker.last_kf_tracked = int(state["last_kf_tracked"])
+    dev_stat = state["last_kf_tracked_dev"]
+    tracker._last_kf_tracked_dev = (
+        None if dev_stat is None
+        else torch.tensor(int(dev_stat), dtype=torch.int32, device=dev))
+    tracker.frames_since_kf = int(state["frames_since_kf"])
+    tracker.frame_id = int(state["frame_id"])
+    obs = state["cur_obs"]
+    tracker._cur_obs = (None if obs is None else
+                        torch.from_numpy(np.array(obs, np.int32)).to(dev))
+    tracker.lost_since = int(state["lost_since"])
+    ref = state["ref_feats"]
+    tracker.ref_feats = None if ref is None else features_from_numpy(ref,
+                                                                     dev)
+    tracker.ref_timestamp = float(state["ref_timestamp"])
+    tracker._traj_rel = [(float(ts), int(kf), se3_from_numpy(T, dev))
+                         for ts, kf, T in state["traj_rel"]]
+    tracker.trajectory = [FrameRecord(float(ts), se3_from_numpy(T, dev),
+                                      int(n), str(s))
+                          for ts, T, n, s in state["trajectory"]]

@@ -6,7 +6,8 @@ capacities and validity masks, as tensors on one device. Descriptors are
 popcount and no logical shift on uint32). Updates are functional, as in
 the reference: they return a new ``MapState`` and leave the input alone.
 The reference's ``.at[].set(mode="drop")`` becomes ``utils.masked_set``,
-whose scatter indices stay unique. Compaction and growth are not ported.
+whose scatter indices stay unique. Compaction front-packs the valid rows
+with a stable sort and growth pads the tables, as the reference does.
 """
 
 from __future__ import annotations
@@ -218,3 +219,124 @@ def observation_triples(m: MapState, kf_window: torch.Tensor):
                           device=obs.device)[:, None].expand(W, F)
     return (kf_idx.reshape(-1), obs_c.reshape(-1), uv.reshape(-1, 2),
             octv.reshape(-1), valid.reshape(-1))
+
+
+def _front_pack_order(valid: torch.Tensor) -> torch.Tensor:
+    """Stable permutation moving valid rows to the front (their relative
+    order kept), invalid rows to the tail."""
+    N = valid.shape[0]
+    key = torch.where(valid, 0, N) + torch.arange(N, device=valid.device)
+    return torch.argsort(key)
+
+
+def _old_to_new(valid: torch.Tensor) -> torch.Tensor:
+    return torch.where(valid, torch.cumsum(valid.to(torch.int32), 0,
+                                           dtype=torch.int32) - 1,
+                       torch.full_like(valid, -1, dtype=torch.int32))
+
+
+def compact_map_points(m: MapState) -> Tuple[MapState, torch.Tensor]:
+    """Reclaim culled map-point slots by front-packing the valid rows.
+    Returns (map, old_to_new (M,) int32 with -1 for dropped rows)."""
+    M = m.max_mp
+    valid = m.mp_valid
+    order = _front_pack_order(valid)
+    old_to_new = _old_to_new(valid)
+
+    def g(t):
+        return t[order]
+
+    obs = m.kf_obs_mp
+    new_obs = torch.where(obs >= 0,
+                          old_to_new[torch.clamp(obs, 0, M - 1).long()],
+                          torch.full_like(obs, -1))
+    m = m._replace(
+        mp_pos=g(m.mp_pos), mp_desc=g(m.mp_desc), mp_valid=g(valid),
+        mp_normal=g(m.mp_normal), mp_ref_kf=g(m.mp_ref_kf),
+        mp_visible=g(m.mp_visible), mp_found=g(m.mp_found),
+        mp_first_kf=g(m.mp_first_kf),
+        mp_min_dist=g(m.mp_min_dist), mp_max_dist=g(m.mp_max_dist),
+        kf_obs_mp=new_obs,
+        n_mp=torch.sum(valid.to(torch.int32)).to(torch.int32))
+    return m, old_to_new
+
+
+def compact_keyframes(m: MapState
+                      ) -> Tuple[MapState, torch.Tensor, torch.Tensor]:
+    """Reclaim culled keyframe slots by front-packing the valid rows; map
+    points whose reference (or first) keyframe was dropped are re-homed to
+    their first observing keyframe. Returns (map, old_to_new (K,) int32
+    with -1 for dropped, order (K,) permutation)."""
+    K = m.max_kf
+    valid = m.kf_valid
+    order = _front_pack_order(valid)
+    old_to_new = _old_to_new(valid)
+
+    def g(t):
+        return t[order]
+
+    memb = observation_mask(m)                                   # (K, M)
+    # argmax of a bool column: its first True row (0 when none)
+    first_obs = torch.argmax(memb.to(torch.int8), dim=0).to(torch.int32)
+    ref = m.mp_ref_kf
+    ref_ok = (ref >= 0) & valid[torch.clamp(ref, 0, K - 1).long()]
+    ref2 = torch.where(ref_ok, ref, first_obs)
+    new_ref = torch.clamp(old_to_new[torch.clamp(ref2, 0, K - 1).long()],
+                          min=0)
+    first2 = torch.where(valid[torch.clamp(m.mp_first_kf, 0, K - 1).long()],
+                         m.mp_first_kf, first_obs)
+    new_first = torch.clamp(
+        old_to_new[torch.clamp(first2, 0, K - 1).long()], min=0)
+
+    m = m._replace(
+        kf_pose=lie.SE3(g(m.kf_pose.R), g(m.kf_pose.t)),
+        kf_valid=g(valid), kf_timestamp=g(m.kf_timestamp),
+        kf_uv=g(m.kf_uv), kf_desc=g(m.kf_desc), kf_octave=g(m.kf_octave),
+        kf_feat_valid=g(m.kf_feat_valid), kf_obs_mp=g(m.kf_obs_mp),
+        mp_ref_kf=new_ref, mp_first_kf=new_first,
+        n_kf=torch.sum(valid.to(torch.int32)).to(torch.int32))
+    return m, old_to_new, order
+
+
+def grow_map(m: MapState, new_max_kf: int = 0, new_max_mp: int = 0
+             ) -> MapState:
+    """Pad the tables to larger capacities (zero or smaller values leave an
+    axis unchanged); new keyframe slots hold identity poses."""
+    K, M = m.max_kf, m.max_mp
+    nK, nM = max(new_max_kf, K), max(new_max_mp, M)
+    if nK == K and nM == M:
+        return m
+
+    def pad(t, n_new, fill=0):
+        if n_new == t.shape[0]:
+            return t
+        extra = torch.full((n_new - t.shape[0],) + t.shape[1:], fill,
+                           dtype=t.dtype, device=t.device)
+        return torch.cat([t, extra])
+
+    eye = torch.eye(3, dtype=m.kf_pose.R.dtype, device=m.kf_pose.R.device
+                    ).expand(nK - K, 3, 3)
+    return m._replace(
+        kf_pose=lie.SE3(torch.cat([m.kf_pose.R, eye]), pad(m.kf_pose.t, nK)),
+        kf_valid=pad(m.kf_valid, nK), kf_timestamp=pad(m.kf_timestamp, nK),
+        kf_uv=pad(m.kf_uv, nK), kf_desc=pad(m.kf_desc, nK),
+        kf_octave=pad(m.kf_octave, nK),
+        kf_feat_valid=pad(m.kf_feat_valid, nK),
+        kf_obs_mp=pad(m.kf_obs_mp, nK, -1),
+        mp_pos=pad(m.mp_pos, nM), mp_desc=pad(m.mp_desc, nM),
+        mp_valid=pad(m.mp_valid, nM), mp_normal=pad(m.mp_normal, nM),
+        mp_ref_kf=pad(m.mp_ref_kf, nM), mp_visible=pad(m.mp_visible, nM),
+        mp_found=pad(m.mp_found, nM), mp_first_kf=pad(m.mp_first_kf, nM),
+        mp_min_dist=pad(m.mp_min_dist, nM),
+        mp_max_dist=pad(m.mp_max_dist, nM, 1e9),
+    )
+
+
+def covisibility_matrix(m: MapState) -> torch.Tensor:
+    """(K, K) int32 number of shared map points between keyframes, zero
+    diagonal. A float32 product of 0/1 entries, as the reference's: exact,
+    since a count cannot exceed the features of one keyframe (< 2^24)."""
+    memb = observation_mask(m).to(torch.float32)
+    W = (memb @ memb.T).to(torch.int32)
+    return W * (1 - torch.eye(W.shape[0], dtype=torch.int32,
+                              device=W.device))

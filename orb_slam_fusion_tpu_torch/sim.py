@@ -1,0 +1,549 @@
+"""Synthetic worlds and sequences: the parts the monocular session uses.
+
+Counterpart of ``orb_slam_fusion_tpu/sim.py`` (``SyntheticWorld``,
+``make_corridor_world``, ``world_from_trajectory``, ``render_frame``,
+``render_image``, ``gt_positions``), for the port's tests and
+``chip_smoke.py``, which run without JAX. Given the same arguments it
+returns the reference's arrays bit for bit, so both packages track the
+same inputs.
+
+It is host code, numpy only, like the reference's (which draws from
+numpy's ``RandomState``; its numpy lines are copied unchanged). The few
+float32 steps the reference runs through JAX eagerly are rebuilt here
+with the rounding XLA:CPU gives them (jax 0.9.0), one rounding per eager
+op:
+
+* ``R @ x`` (``lie.se3_apply``'s einsum) is a chain of fused
+  multiply-adds over the 3 terms in increasing index, then ``+ t``;
+* ``cameras.project`` is ``fx * x``, ``* (1/z)``, ``+ cx``, each rounded;
+* ``lie.so3_exp`` takes XLA:CPU's ``sin``/``cos``, which are glibc's
+  ``sinf``/``cosf`` (glibc 2.36: double-precision polynomials after a
+  fast pi/2 reduction); ``_sincosf`` evaluates the same polynomials
+  with the same table.
+
+A fused multiply-add is computed in float64 (the product of two float32
+values is exact there) and rounded once to float32.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .frontend.extractor import Features
+from .map.convert import desc_to_torch
+
+f32 = np.float32
+PINHOLE = "pinhole"
+
+
+class SE3(NamedTuple):
+    """Host-side poses: R (..., 3, 3) and t (..., 3) float32 arrays."""
+
+    R: np.ndarray
+    t: np.ndarray
+
+
+class SyntheticWorld(NamedTuple):
+    points: np.ndarray        # (P, 3) world points
+    descriptors: np.ndarray   # (P, 8) uint32
+    poses: SE3                # (T,) ground-truth Tcw per frame
+    timestamps: np.ndarray    # (T,)
+    ref_dist: Optional[np.ndarray] = None
+    quad_desc: Optional[np.ndarray] = None
+
+
+# ---------------------------------------------------------------------------
+# float32 steps with XLA:CPU's rounding
+# ---------------------------------------------------------------------------
+
+
+def _fma(a, b, c) -> np.ndarray:
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(f32)
+
+
+def _matvec(R: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """einsum('...ij,...j->...i') in float32: a fused multiply-add chain
+    over j = 0, 1, 2."""
+    R = np.asarray(R, f32)
+    x = np.asarray(x, f32)[..., None, :]
+    out = (R[..., 0] * x[..., 0]).astype(f32)
+    out = _fma(R[..., 1], x[..., 1], out)
+    return _fma(R[..., 2], x[..., 2], out)
+
+
+def _matmul3(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) @ (..., 3, 3) in float32, the same chain per entry."""
+    out = (A[..., :, 0, None] * B[..., None, 0, :]).astype(f32)
+    out = _fma(A[..., :, 1, None], B[..., None, 1, :], out)
+    return _fma(A[..., :, 2, None], B[..., None, 2, :], out)
+
+
+def se3_apply(pose: SE3, x: np.ndarray) -> np.ndarray:
+    return (_matvec(pose.R, x) + pose.t).astype(f32)
+
+
+def se3_inverse(pose: SE3) -> SE3:
+    Rt = np.swapaxes(pose.R, -1, -2)
+    return SE3(Rt, -_matvec(Rt, pose.t))
+
+
+def project(cam_params, xyz: np.ndarray) -> np.ndarray:
+    """Pinhole projection of camera-frame points, rounded as the
+    reference's eager ``cameras.pinhole_project``."""
+    fx, fy, cx, cy = (f32(v) for v in np.asarray(cam_params, f32)[:4])
+    z = xyz[..., 2]
+    zi = (f32(1.0) / np.where(np.abs(z) < f32(1e-9), f32(1e-9), z)
+          ).astype(f32)
+    u = ((fx * xyz[..., 0]).astype(f32) * zi).astype(f32) + cx
+    v = ((fy * xyz[..., 1]).astype(f32) * zi).astype(f32) + cy
+    return np.stack([u.astype(f32), v.astype(f32)], axis=-1)
+
+
+# glibc's __sincosf_table (sysdeps/ieee754/flt-32/s_sincosf_data.c):
+# hpi_inv = 2/pi * 2^24, hpi = pi/2, then c0, c1, s1, c2, s2, c3, s3, c4;
+# the second table serves quadrants with n & 2
+_SC_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")
+_SC_HPI = float.fromhex("0x1.921fb54442d18p+0")
+_SC = [dict(c0=1.0, c1=float.fromhex("-0x1.ffffffd0c621cp-2"),
+            s1=float.fromhex("-0x1.555545995a603p-3"),
+            c2=float.fromhex("0x1.55553e1068f19p-5"),
+            s2=float.fromhex("0x1.1107605230bc4p-7"),
+            c3=float.fromhex("-0x1.6c087e89a359dp-10"),
+            s3=float.fromhex("-0x1.994eb3774cf24p-13"),
+            c4=float.fromhex("0x1.99343027bf8c3p-16"))]
+_SC.append({k: -v if k.startswith("c") else v for k, v in _SC[0].items()})
+_SC_SIGN = (1.0, -1.0, -1.0, 1.0)
+
+
+def _abstop12(y: float) -> int:
+    return (int(np.array(y, f32).view(np.uint32)) >> 20) & 0x7FF
+
+
+def _sincosf_poly(x: float, x2: float, p: dict, n: int) -> float:
+    if n & 1 == 0:
+        x3 = x * x2
+        s1 = p["s2"] + x2 * p["s3"]
+        x7 = x3 * x2
+        s = x + x3 * p["s1"]
+        return s + x7 * s1
+    x4 = x2 * x2
+    c2 = p["c3"] + x2 * p["c4"]
+    c1 = p["c0"] + x2 * p["c1"]
+    x6 = x4 * x2
+    c = c1 + x4 * p["c2"]
+    return c + x6 * c2
+
+
+def _sincosf(y: float, cos: bool) -> np.float32:
+    """glibc's sinf / cosf of a float32 (|y| < 120)."""
+    y = float(f32(y))
+    top = _abstop12(y)
+    if top < _abstop12(float.fromhex("0x1.921fb6p-1")):
+        if top < _abstop12(2.0 ** -12):
+            return f32(1.0) if cos else f32(y)
+        return f32(_sincosf_poly(y, y * y, _SC[0], int(cos)))
+    if top >= _abstop12(120.0):
+        raise ValueError(f"sincosf of {y}: argument out of the ported range")
+    r = y * _SC_HPI_INV
+    n = (int(np.array(r).astype(np.int32)) + 0x800000) >> 24
+    x = y - n * _SC_HPI
+    s = _SC_SIGN[n & 3]
+    p = _SC[1] if n & 2 else _SC[0]
+    return f32(_sincosf_poly(x * s, x * x, p, n ^ int(cos)))
+
+
+def _map_f32(fn, a: np.ndarray) -> np.ndarray:
+    a = np.asarray(a, f32)
+    return np.array([fn(float(v)) for v in a.reshape(-1)],
+                    f32).reshape(a.shape)
+
+
+def _hat(w: np.ndarray) -> np.ndarray:
+    z = np.zeros_like(w[..., 0])
+    return np.stack([np.stack([z, -w[..., 2], w[..., 1]], -1),
+                     np.stack([w[..., 2], z, -w[..., 0]], -1),
+                     np.stack([-w[..., 1], w[..., 0], z], -1)], -2)
+
+
+def so3_exp(w: np.ndarray) -> np.ndarray:
+    """float32 Rodrigues exponential, rounded as the reference's eager
+    ``lie.so3_exp`` on XLA:CPU."""
+    w = np.asarray(w, f32)
+    ww = (w * w).astype(f32)
+    th2 = ((ww[..., 0] + ww[..., 1]).astype(f32) + ww[..., 2]).astype(f32)
+    small = th2 < f32(1e-8)
+    th2s = np.where(small, f32(1.0), th2).astype(f32)
+    th = np.sqrt(th2s).astype(f32)
+    sin = _map_f32(lambda v: _sincosf(v, False), th)
+    cos = _map_f32(lambda v: _sincosf(v, True), th)
+    a = np.where(small, (f32(1.0) - (th2 / f32(6.0)).astype(f32)),
+                 (sin / th).astype(f32)).astype(f32)
+    b = np.where(small, (f32(0.5) - (th2 / f32(24.0)).astype(f32)),
+                 ((f32(1.0) - cos).astype(f32) / (th * th).astype(f32))
+                 ).astype(f32)
+    W = _hat(w)
+    W2 = _matmul3(W, W)
+    eye = np.broadcast_to(np.eye(3, dtype=f32), W.shape)
+    aW = (a[..., None, None] * W).astype(f32)
+    bW2 = (b[..., None, None] * W2).astype(f32)
+    return ((eye + aW).astype(f32) + bW2).astype(f32)
+
+
+# ---------------------------------------------------------------------------
+# worlds
+# ---------------------------------------------------------------------------
+
+
+def make_quadrant_descriptors(desc: np.ndarray, rng: np.random.RandomState,
+                              drift_bits: int = 80) -> np.ndarray:
+    """(P, 8) base descriptors -> (P, 4, 8) per-view-quadrant variants."""
+    P = desc.shape[0]
+    out = np.empty((P, 4, 8), np.uint32)
+    for q in range(4):
+        mask = np.zeros((P, 256), bool)
+        cols = rng.randint(0, 256, (P, drift_bits))
+        mask[np.arange(P)[:, None], cols] = True
+        words = np.packbits(mask.reshape(P, 8, 32),
+                            axis=-1, bitorder='little')
+        xor = words.view(np.uint32).reshape(P, 8)
+        out[:, q] = desc ^ (xor if q else 0)
+    return out
+
+
+def _view_quadrant(view_dir: np.ndarray) -> np.ndarray:
+    """(N, 3) point->camera directions -> (N,) quadrant index 0..3."""
+    ang = np.arctan2(view_dir[:, 1], view_dir[:, 0])
+    return ((ang + np.pi) / (np.pi / 2.0)).astype(np.int64) % 4
+
+
+def _canonical_distances(pts: np.ndarray, cam_positions: np.ndarray,
+                         rng: np.random.RandomState) -> np.ndarray:
+    """ref_dist per point: its distance from the trajectory centroid pushed
+    up by a random 0-3 octave margin."""
+    centroid = np.asarray(cam_positions, np.float64).mean(axis=0)
+    d = np.linalg.norm(pts - centroid[None, :], axis=1)
+    return (d * 1.2 ** rng.uniform(0.0, 3.0, len(pts))).astype(np.float32)
+
+
+def make_corridor_world(n_frames: int = 120, n_points: int = 4000,
+                        seed: int = 0, fps: float = 20.0,
+                        motion: str = "arc") -> SyntheticWorld:
+    """Points in a corridor volume; camera advances with gentle yaw/sway."""
+    rng = np.random.RandomState(seed)
+    if motion == "circle":
+        pts = np.stack([
+            rng.uniform(-9.0, 9.0, n_points),
+            rng.uniform(-2.5, 2.5, n_points),
+            rng.uniform(-6.0, 12.0, n_points),
+        ], axis=1).astype(np.float32)
+    else:
+        length = 3.0 + 0.25 * n_frames
+        pts = np.stack([
+            rng.uniform(-4.0, 4.0, n_points),
+            rng.uniform(-2.5, 2.5, n_points),
+            rng.uniform(0.0, length, n_points),
+        ], axis=1).astype(np.float32)
+    desc = rng.randint(0, 2 ** 32, size=(n_points, 8), dtype=np.uint64)
+    desc = desc.astype(np.uint32)
+
+    Rs, ts = [], []
+    for k in range(n_frames):
+        s = k / max(n_frames - 1, 1)
+        if motion == "arc":
+            pos_w = np.array([
+                0.8 * np.sin(2.0 * np.pi * s),
+                0.2 * np.sin(4.0 * np.pi * s),
+                0.18 * k,
+            ])
+            yaw = 0.15 * np.sin(2.0 * np.pi * s)
+            pitch = 0.05 * np.sin(4.0 * np.pi * s)
+            w = np.array([pitch, yaw, 0.0], np.float32)
+        elif motion == "circle":
+            ang = 2.0 * np.pi * s
+            r_c = 3.0
+            pos_w = np.array([r_c * np.sin(ang), 0.0,
+                              r_c * (1 - np.cos(ang))])
+            w = np.array([0.0, np.pi / 2 - ang, 0.0], np.float32)
+        else:  # straight
+            pos_w = np.array([0.0, 0.0, 0.18 * k])
+            w = np.zeros(3, np.float32)
+        R_wc = so3_exp(w)
+        R_cw = R_wc.T
+        t_cw = -R_cw @ pos_w
+        Rs.append(R_cw)
+        ts.append(t_cw)
+    poses = SE3(np.stack(Rs).astype(f32), np.stack(ts).astype(f32))
+    timestamps = np.arange(n_frames) / fps
+    cam_pos = np.stack([-R.T @ t for R, t in zip(Rs, ts)])
+    return SyntheticWorld(pts, desc, poses, timestamps,
+                          _canonical_distances(pts, cam_pos, rng))
+
+
+def quat_to_mat(qv):
+    """wxyz quaternion -> rotation matrix (R_wb for GT body quats)."""
+    w, x, y, z = qv
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def world_from_trajectory(positions: np.ndarray, n_points: int = 6000,
+                          seed: int = 0,
+                          timestamps: Optional[np.ndarray] = None,
+                          point_margin: float = 3.0,
+                          quats_wxyz: Optional[np.ndarray] = None
+                          ) -> SyntheticWorld:
+    """A world around a given trajectory: points fill its bounding volume
+    with a margin; the camera carries ``quats_wxyz`` when given, else looks
+    along the rate-limited direction of travel."""
+    rng = np.random.RandomState(seed)
+    positions = np.asarray(positions, np.float64)
+    T = len(positions)
+    lo = positions.min(axis=0) - point_margin
+    hi = positions.max(axis=0) + point_margin
+    pts = rng.uniform(lo, hi, size=(n_points, 3)).astype(np.float32)
+    desc = rng.randint(0, 2 ** 32, size=(n_points, 8),
+                       dtype=np.uint64).astype(np.uint32)
+
+    if quats_wxyz is not None:
+        Rs, ts = [], []
+        for i in range(T):
+            R_cw = quat_to_mat(np.asarray(quats_wxyz[i], np.float64)).T
+            Rs.append(R_cw)
+            ts.append(-R_cw @ positions[i])
+        poses = SE3(np.stack(Rs).astype(f32), np.stack(ts).astype(f32))
+        if timestamps is None:
+            timestamps = np.arange(T) / 20.0
+        return SyntheticWorld(pts, desc, poses, np.asarray(timestamps),
+                              _canonical_distances(pts, positions, rng))
+
+    vel = np.gradient(positions, axis=0)
+    k = np.ones(15) / 15.0
+    vel = np.stack([np.convolve(vel[:, i], k, mode="same")
+                    for i in range(3)], axis=1)
+    speeds = np.linalg.norm(vel, axis=1)
+    speed_th = max(1e-6, 0.2 * np.median(speeds[speeds > 1e-9])
+                   if np.any(speeds > 1e-9) else 1e-6)
+    good = np.nonzero(speeds > speed_th)[0]
+    z_prev = (vel[good[0]] / speeds[good[0]]) if len(good) else \
+        np.array([1.0, 0.0, 0.0])
+    up = np.array([0.0, 0.0, 1.0])
+    x0 = np.cross(z_prev, up)
+    if np.linalg.norm(x0) < 1e-6:
+        x0 = np.array([0.0, 1.0, 0.0])
+    x0 = x0 / np.linalg.norm(x0)
+    R_wc = np.stack([x0, np.cross(z_prev, x0), z_prev], axis=1)
+    max_step = 0.05
+    Rs, ts = [], []
+    for i in range(T):
+        if speeds[i] > speed_th:
+            z_new = vel[i] / speeds[i]
+            z_cur = R_wc[:, 2]
+            axis = np.cross(z_cur, z_new)
+            na = np.linalg.norm(axis)
+            ang = float(np.arctan2(na, np.clip(z_cur @ z_new, -1, 1)))
+            if na > 1e-9 and ang > 1e-6:
+                step = min(ang, max_step)
+                w = axis / na * step
+                R_step = so3_exp(w.astype(np.float32))
+                R_wc = R_step @ R_wc
+        R_cw = R_wc.T
+        Rs.append(R_cw.copy())
+        ts.append(-R_cw @ positions[i])
+    poses = SE3(np.stack(Rs).astype(f32), np.stack(ts).astype(f32))
+    if timestamps is None:
+        timestamps = np.arange(T) / 20.0
+    return SyntheticWorld(pts, desc, poses, np.asarray(timestamps),
+                          _canonical_distances(pts, positions, rng))
+
+
+def gt_positions(world: SyntheticWorld) -> np.ndarray:
+    """Ground-truth camera centers (T, 3) in world coords."""
+    return se3_inverse(world.poses).t
+
+
+def _frame_pose(world: SyntheticWorld, frame: int,
+                pose_override: Optional[SE3]) -> SE3:
+    if pose_override is not None:
+        return SE3(np.asarray(pose_override.R, f32),
+                   np.asarray(pose_override.t, f32))
+    return SE3(world.poses.R[frame], world.poses.t[frame])
+
+
+# ---------------------------------------------------------------------------
+# rendering
+# ---------------------------------------------------------------------------
+
+
+def render_frame_numpy(world: SyntheticWorld, frame: int, cam_params,
+                       image_size: Tuple[int, int], n_features: int,
+                       pixel_noise: float = 0.4, desc_bit_flips: int = 4,
+                       dropout: float = 0.1, seed: int = 0,
+                       pose_override: Optional[SE3] = None):
+    """``render_frame``'s arrays on the host: a dict of the Features
+    fields as numpy arrays (descriptors uint32)."""
+    rng = np.random.RandomState(seed * 100003 + frame)
+    h, w = image_size
+    pose = _frame_pose(world, frame, pose_override)
+    pc = se3_apply(pose, world.points)
+    uv = project(cam_params, pc)
+    vis = (pc[:, 2] > 0.3) & (pc[:, 2] < 40.0) \
+        & (uv[:, 0] >= 8) & (uv[:, 0] < w - 8) \
+        & (uv[:, 1] >= 8) & (uv[:, 1] < h - 8)
+    vis &= rng.rand(len(vis)) > dropout
+    saliency_rng = np.random.RandomState(9177)
+    saliency = saliency_rng.rand(len(world.points))
+    idx = np.nonzero(vis)[0]
+    idx = idx[np.argsort(-saliency[idx])][:n_features]
+    rng.shuffle(idx)
+    n = len(idx)
+
+    uv_obs = uv[idx] + rng.randn(n, 2).astype(np.float32) * pixel_noise
+    if world.ref_dist is not None:
+        dist = np.linalg.norm(pc[idx], axis=1)
+        octv = np.round(np.log(world.ref_dist[idx] /
+                               np.maximum(dist, 1e-6)) / np.log(1.2))
+        octv += (rng.rand(n) < 0.15) * rng.choice([-1, 1], n)
+        octv = np.clip(octv, 0, 7).astype(np.int32)
+    else:
+        octv = np.zeros(n, np.int32)
+    if world.quad_desc is not None:
+        C = se3_apply(se3_inverse(pose), np.zeros(3, f32))
+        vdir = C[None, :] - world.points[idx]
+        quad = _view_quadrant(vdir)
+        desc = world.quad_desc[idx, quad].copy()
+    else:
+        desc = world.descriptors[idx].copy()
+    if desc_bit_flips > 0:
+        for _ in range(desc_bit_flips):
+            word = rng.randint(0, 8, n)
+            bit = rng.randint(0, 32, n).astype(np.uint32)
+            desc[np.arange(n), word] ^= (np.uint32(1) << bit)
+
+    f_uv = np.zeros((n_features, 2), np.float32)
+    f_desc = np.zeros((n_features, 8), np.uint32)
+    f_oct = np.zeros(n_features, np.int32)
+    f_val = np.zeros(n_features, bool)
+    f_uv[:n] = uv_obs
+    f_desc[:n] = desc
+    f_oct[:n] = octv
+    f_val[:n] = True
+    return dict(uv=f_uv, response=f_val.astype(np.float32), octave=f_oct,
+                angle=np.zeros(n_features, np.float32), desc=f_desc,
+                valid=f_val)
+
+
+def render_frame(world: SyntheticWorld, frame: int, cam_params,
+                 image_size: Tuple[int, int], n_features: int,
+                 pixel_noise: float = 0.4, desc_bit_flips: int = 4,
+                 dropout: float = 0.1, seed: int = 0,
+                 pose_override: Optional[SE3] = None, device=None
+                 ) -> Features:
+    """Observe the world from frame's GT pose -> fixed-capacity Features
+    on ``device`` (CUDA unless named)."""
+    dev = resolve_device(device)
+    a = render_frame_numpy(world, frame, cam_params, image_size, n_features,
+                           pixel_noise, desc_bit_flips, dropout, seed,
+                           pose_override)
+    return Features(**{k: (desc_to_torch(v, dev) if k == "desc"
+                           else torch.from_numpy(v).to(dev))
+                       for k, v in a.items()})
+
+
+def _landmark_textures(n_points: int, seed: int = 4242,
+                       cells: int = 6) -> np.ndarray:
+    """Persistent per-landmark texture patches: (P, cells, cells) in
+    [0, 1], blocky with a directional ramp and a per-landmark amplitude."""
+    rng = np.random.RandomState(seed)
+    tex = (rng.rand(n_points, cells, cells) > 0.5).astype(np.float32)
+    ang = rng.rand(n_points, 1, 1) * 2 * np.pi
+    yy, xx = np.mgrid[0:cells, 0:cells].astype(np.float32)
+    yy = (yy / (cells - 1) - 0.5)[None]
+    xx = (xx / (cells - 1) - 0.5)[None]
+    ramp = xx * np.cos(ang) + yy * np.sin(ang) + 0.5
+    tex = 0.45 * tex + 0.55 * np.clip(ramp, 0, 1)
+    amp = 0.45 + 0.55 * rng.rand(n_points, 1, 1)
+    return (tex * amp).astype(np.float32)
+
+
+_TEX_CACHE: dict = {}
+
+
+def render_image(world: SyntheticWorld, frame: int, cam_params,
+                 image_size: Tuple[int, int], seed: int = 0,
+                 pose_override: Optional[SE3] = None, bg_noise: float = 3.0,
+                 base_px: float = 18.0, max_points: int = 1500,
+                 center_marker: bool = False) -> np.ndarray:
+    """(H, W) float32 grayscale image of the world from frame's GT pose:
+    each visible landmark splatted as its persistent texture patch, sized
+    by its distance against its canonical range."""
+    rng = np.random.RandomState(seed * 70001 + frame)
+    h, w = image_size
+    pose = _frame_pose(world, frame, pose_override)
+    pc = se3_apply(pose, world.points)
+    uv = project(cam_params, pc)
+    vis = (pc[:, 2] > 0.3) & (pc[:, 2] < 40.0) \
+        & (uv[:, 0] >= 4) & (uv[:, 0] < w - 4) \
+        & (uv[:, 1] >= 4) & (uv[:, 1] < h - 4)
+    idx = np.nonzero(vis)[0]
+    if len(idx) > max_points:
+        saliency = np.random.RandomState(9177).rand(len(world.points))
+        idx = idx[np.argsort(-saliency[idx])][:max_points]
+
+    key = len(world.points)
+    if key not in _TEX_CACHE:
+        _TEX_CACHE[key] = _landmark_textures(len(world.points))
+    tex = _TEX_CACHE[key]
+
+    img = rng.randn(h, w).astype(np.float32) * bg_noise + 64.0
+    ref = (world.ref_dist if world.ref_dist is not None
+           else np.full(len(world.points), 6.0, np.float32))
+    dist = np.linalg.norm(pc[idx], axis=1)
+    sizes = np.clip(base_px * ref[idx] / np.maximum(dist, 1e-6),
+                    6, 64).astype(np.int32)
+    order = np.argsort(-dist)
+    for i in order:
+        p = idx[i]
+        s = int(sizes[i])
+        cu, cv = uv[p]
+        u0 = int(round(cu)) - s // 2
+        v0 = int(round(cv)) - s // 2
+        u1, v1 = u0 + s, v0 + s
+        cu0, cv0 = max(u0, 0), max(v0, 0)
+        cu1, cv1 = min(u1, w), min(v1, h)
+        if cu1 <= cu0 or cv1 <= cv0:
+            continue
+        C = tex.shape[1]
+        fy = (np.arange(cv0, cv1) - v0 + 0.5) / s * (C - 1)
+        fx = (np.arange(cu0, cu1) - u0 + 0.5) / s * (C - 1)
+        y0 = np.clip(fy.astype(np.int32), 0, C - 2)
+        x0 = np.clip(fx.astype(np.int32), 0, C - 2)
+        wy = (fy - y0)[:, None]
+        wx = (fx - x0)[None, :]
+        tp = tex[p]
+        patch = (tp[np.ix_(y0, x0)] * (1 - wy) * (1 - wx)
+                 + tp[np.ix_(y0 + 1, x0)] * wy * (1 - wx)
+                 + tp[np.ix_(y0, x0 + 1)] * (1 - wy) * wx
+                 + tp[np.ix_(y0 + 1, x0 + 1)] * wy * wx)
+        img[cv0:cv1, cu0:cu1] = 64.0 + patch * 130.0
+        if not center_marker:
+            continue
+        cs = max(2, s // 10)
+        hi, lo = (224.0, 32.0) if (p & 1) == 0 else (32.0, 224.0)
+        ju0, jv0 = int(round(cu)) - cs, int(round(cv)) - cs
+        for (qy, qx, val) in ((0, 0, hi), (0, 1, lo),
+                              (1, 0, lo), (1, 1, hi)):
+            a0 = max(jv0 + qy * cs, 0)
+            a1 = min(jv0 + (qy + 1) * cs, h)
+            b0 = max(ju0 + qx * cs, 0)
+            b1 = min(ju0 + (qx + 1) * cs, w)
+            if a1 > a0 and b1 > b0:
+                img[a0:a1, b0:b1] = val
+    return np.clip(img, 0.0, 255.0)

@@ -14,8 +14,9 @@ and the reduced system is one (6K, 3M) x (3M, 6K) product. The costs and
 the solution are the reference's; the float summation order is not.
 Monocular factors only, so every factor has the 2-dof chi-square threshold
 (the reference's ``_factor_chi2_th`` raises it for stereo factors): the
-stereo residual, the matrix-free PCG step and ``ChunkedLM`` are not
-ported yet.
+stereo residual and the matrix-free PCG step are not ported yet.
+``ChunkedLM`` runs the same two-phase solve resumably, a few iterations
+per call, for the tracker's background local BA.
 """
 
 from __future__ import annotations
@@ -234,10 +235,11 @@ def inlier_mask(poses, points, prob: BAProblem, cam_model: str,
     return (chi2 <= chi2_th) & fin & prob.valid
 
 
-def _lm_scan(poses, points, lam, cost0, inlier, prob: BAProblem,
+def lm_chunk(poses, points, lam, cost0, inlier, prob: BAProblem,
              cam_model: str, iters: int, chi2_th: float, use_robust: bool):
-    """``iters`` LM iterations from an explicit (lam, cost) carry; accept
-    decisions stay on the device. Returns (..., candidate costs list)."""
+    """Resumable LM: ``iters`` iterations from an explicit (lam, cost)
+    carry, accept decisions on the device. Returns the updated carry
+    (poses, points, lam, cost) and the list of candidate costs."""
     costs: List[torch.Tensor] = []
     for _ in range(iters):
         cand_poses, cand_points, _ = _lm_step(
@@ -264,7 +266,7 @@ def _lm_run(poses, points, inlier, prob: BAProblem, cam_model: str,
             iters: int, chi2_th: float, use_robust: bool):
     cost0 = lm_cost(poses, points, inlier, prob, cam_model, chi2_th)
     lam = torch.full((), 1e-4, dtype=points.dtype, device=points.device)
-    poses, points, _, _, costs = _lm_scan(
+    poses, points, _, _, costs = lm_chunk(
         poses, points, lam, cost0, inlier, prob, cam_model, iters, chi2_th,
         use_robust)
     return poses, points, costs
@@ -288,3 +290,67 @@ def bundle_adjustment(prob: BAProblem, cam_model: str = cameras.PINHOLE,
                                     iters_second, chi2_th, False)
     inlier = inlier_mask(poses, points, prob, cam_model, chi2_th)
     return poses, points, inlier, torch.stack(costs1 + costs2)
+
+
+class ChunkedLM:
+    """Host-side resumable two-phase robust LM over a BAProblem.
+
+    The carry (poses, points, lam, cost, inlier) stays on the device;
+    ``step()`` advances it by ``chunk`` iterations with no host sync, so
+    the tracker can interleave frames between chunks. Phase 0 runs
+    ``iters_first`` robust iterations, then the chi2 outlier re-mask and a
+    trust-region restart, phase 1 ``iters_second`` plain ones. Dropping
+    the object aborts the solve.
+    """
+
+    def __init__(self, prob: BAProblem, cam_model: str,
+                 iters_first: int = 5, iters_second: int = 10,
+                 chunk: int = 3, chi2_th: float = CHI2_2D,
+                 pose_stride: int = 0, window_layout: bool = True):
+        if pose_stride > 0:
+            raise NotImplementedError(
+                "the matrix-free PCG reduced solve (pose_stride > 0) is not "
+                "ported yet: ROADMAP A13")
+        if not window_layout:
+            raise NotImplementedError("only the window layout is ported")
+        self.prob = prob
+        self.cam_model = cam_model
+        self.chi2_th = chi2_th
+        self.poses = prob.poses
+        self.points = prob.points
+        self.inlier = torch.ones_like(prob.valid)
+        self.lam = self._lam0()
+        self.cost = lm_cost(self.poses, self.points, self.inlier, prob,
+                            cam_model, chi2_th)
+        self.left = [iters_first, iters_second]
+        self.phase = 0
+        self.chunk = chunk
+
+    def _lam0(self) -> torch.Tensor:
+        return torch.full((), 1e-4, dtype=self.points.dtype,
+                          device=self.points.device)
+
+    @property
+    def done(self) -> bool:
+        return self.phase >= 2
+
+    def step(self) -> bool:
+        """Advance one chunk; True when finished."""
+        if self.done:
+            return True
+        n = min(self.chunk, self.left[self.phase])
+        self.poses, self.points, self.lam, self.cost, _ = lm_chunk(
+            self.poses, self.points, self.lam, self.cost, self.inlier,
+            self.prob, self.cam_model, n, self.chi2_th, self.phase == 0)
+        self.left[self.phase] -= n
+        if self.left[self.phase] <= 0:
+            self.phase += 1
+            if self.phase == 1:
+                # between-phase outlier re-mask + trust-region restart
+                self.inlier = inlier_mask(self.poses, self.points,
+                                          self.prob, self.cam_model,
+                                          self.chi2_th)
+                self.cost = lm_cost(self.poses, self.points, self.inlier,
+                                    self.prob, self.cam_model, self.chi2_th)
+                self.lam = self._lam0()
+        return self.done

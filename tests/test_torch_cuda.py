@@ -96,6 +96,83 @@ def test_kernel_matches_plain_on_adversarial_cases(cuda, name, octave):
         assert torch.equal(g, w), (what, int((g != w).sum()))
 
 
+@pytest.mark.parametrize("N", [1024, 4097])
+@pytest.mark.parametrize("M", [8192, 16384, 32768])
+def test_kernel_matches_plain_at_grown_map_sizes(cuda, M, N):
+    """The session's map table starts at 8192 rows and doubles when it
+    fills (``grow_map``): the kernel takes every such M, on the resident
+    (N <= 4096) and the chunked (N > 4096) path, bit-exact against the
+    plain version with the octave gate on."""
+    rng = np.random.RandomState(M + N)
+    pred_uv = rng.uniform(0, 752, (M, 2)).astype(np.float32)
+    kp_uv = rng.uniform(0, 752, (N, 2)).astype(np.float32)
+    mp_desc = rng.randint(0, 2 ** 32, (M, 8), dtype=np.uint64).astype(
+        np.uint32)
+    kp_desc = rng.randint(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(
+        np.uint32)
+    rows = rng.choice(M, N // 2, replace=False)
+    kp_desc[: N // 2] = mp_desc[rows]
+    kp_uv[: N // 2] = pred_uv[rows] + rng.randn(N // 2, 2).astype(
+        np.float32)
+    mp_valid = rng.rand(M) > 0.3
+    mp_valid[rows] = True
+    mp_oct = rng.randint(0, 8, M).astype(np.int32)
+    kp_oct = rng.randint(0, 8, N).astype(np.int32)
+    kp_oct[: N // 2] = mp_oct[rows]
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    args = [t(pred_uv), desc_to_torch(mp_desc, cuda), t(mp_valid),
+            t(rng.uniform(5, 40, M).astype(np.float32)), t(kp_uv),
+            desc_to_torch(kp_desc, cuda), t(rng.rand(N) > 0.05)]
+    kw = dict(mp_octave=t(mp_oct), kp_octave=t(kp_oct))
+    before = mm.launches
+    got = mm.masked_match(*args, **kw)
+    assert mm.launches == before + 1
+    want = mm.masked_match_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((want[1] == 0).sum()) > N // 4     # the planted matches
+
+
+def test_session_frames_launch_the_kernel(cuda):
+    """A short monocular session on the card: every tracked frame launches
+    the kernel (3 calls per fused step), and each launch agrees with the
+    plain version on its own inputs."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
+    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
+
+    cfg = SlamConfig(cam_params=(400.0, 400.0, 376.0, 240.0),
+                     orb=OrbParams(n_features=512), max_keyframes=64,
+                     max_map_points=4096, ba_window=6, loop_closing=False)
+    world = sim.make_corridor_world(n_frames=12, n_points=4000, seed=3)
+    tr = MonoTracker(cfg, device=cuda)
+    seen, launch = [], mm.masked_match_cuda
+
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
+                                                       kp_desc)))
+        return out
+
+    mm.masked_match_cuda = record
+    try:
+        for k in range(12):
+            before = len(seen)
+            f = sim.render_frame(world, k, cfg.cam_params, cfg.image_size,
+                                 512, pixel_noise=0.3, desc_bit_flips=3,
+                                 dropout=0.08, seed=11, device=cuda)
+            rec = tr.process_features(f, float(world.timestamps[k]))
+            if rec.state == "ok":
+                assert len(seen) - before >= 3, (k, len(seen) - before)
+    finally:
+        mm.masked_match_cuda = launch
+    assert tr.state.name == "OK" and seen
+    for got, want in seen:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_cuda_wrapper_rejects_cpu_tensors(cuda):
     uvr = torch.zeros(4, 4)
     with pytest.raises(ValueError):

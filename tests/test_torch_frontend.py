@@ -8,8 +8,11 @@ seed. What is bit-exact and what is not:
   does on the CPU (ROADMAP.md, C1), on these images and on the 480x752
   bench pyramid.
 * So the whole extraction matches the reference bit for bit on every
-  octave: keypoints, octaves, responses, descriptors. Only the angle is
-  held to a tolerance (a 961-term float sum in another order).
+  octave: keypoints, octaves, responses, angles, descriptors. The angle's
+  moments are summed in the reference's compiled order and its arctangent
+  is glibc's ``atan2f`` rebuilt in float32 steps (ROADMAP.md, C4).
+* Portrait images raise in the resize instead of returning other bits
+  (ROADMAP.md, C3).
 """
 
 import jax
@@ -47,32 +50,29 @@ def _jax_feats(f):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_extract_from_same_pyramid_is_bit_exact(seed):
-    """Fed the reference's pyramid levels, every output is bit-exact except
-    the angle (atol 1e-4: a 961-term float sum in another order)."""
+    """Fed the reference's pyramid levels, every output is bit-exact,
+    angles included."""
     img = jnp.asarray(_image(seed))
     pj, pt = _params()
     fj = _jax_feats(je.extract_features(img, pj))
     levels = [torch.from_numpy(np.array(lv))
               for lv in jpyr.build_pyramid(img, LEVELS, pj.scale_factor)]
     ft = features_to_numpy(te.extract_from_pyramid(levels, pt))
-    for k in ("uv", "octave", "valid", "response", "desc"):
+    for k in ("uv", "octave", "valid", "response", "angle", "desc"):
         np.testing.assert_array_equal(fj[k], ft[k], err_msg=k)
-    np.testing.assert_allclose(fj["angle"], ft["angle"], atol=1e-4)
     assert fj["valid"].sum() > 100
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_extract_features_matches_reference(seed):
     """Whole extraction from the image: keypoint set (uv, octave, valid),
-    responses and descriptors on every octave bit-exact; angle atol
-    1e-4."""
+    responses, angles and descriptors on every octave bit-exact."""
     pj, pt = _params()
     img = _image(seed)
     fj = _jax_feats(je.extract_features(jnp.asarray(img), pj))
     ft = features_to_numpy(te.extract_features(torch.from_numpy(img), pt))
-    for k in ("uv", "octave", "valid", "response", "desc"):
+    for k in ("uv", "octave", "valid", "response", "angle", "desc"):
         np.testing.assert_array_equal(fj[k], ft[k], err_msg=k)
-    np.testing.assert_allclose(fj["angle"], ft["angle"], atol=1e-4)
     assert (fj["valid"] & (fj["octave"] > 0)).sum() > 50
 
 
@@ -129,6 +129,76 @@ def test_bench_pyramid_bit_exact(kind):
                                       err_msg=f"level {lvl}")
 
 
+@pytest.mark.parametrize("seed", range(12))
+def test_bench_angles_bit_exact(seed):
+    """Whole extraction of a seeded 480x752 bench image (1024 features, 8
+    octaves): angles and descriptors bit-exact, so every keypoint lands in
+    the reference's steering bin."""
+    img = synth.textured_image(np.random.RandomState(100 + seed), 480, 752)
+    fj = _jax_feats(je.extract_features(jnp.asarray(img),
+                                        je.OrbParams(n_features=1024)))
+    ft = features_to_numpy(te.extract_features(torch.from_numpy(img),
+                                               te.OrbParams(n_features=1024)))
+    for k in ("uv", "octave", "valid", "angle", "desc"):
+        np.testing.assert_array_equal(fj[k], ft[k], err_msg=k)
+
+
+def test_atan2f_is_the_references():
+    """``atan2f`` against ``jnp.arctan2`` (XLA:CPU calls glibc's atan2f):
+    bit-exact over every quadrant, the axes, signed zeros and the
+    argument-reduction boundaries of atanf."""
+    rng = np.random.RandomState(8)
+    edges = np.array([7 / 16, 11 / 16, 19 / 16, 39 / 16, 2 ** 25, 2 ** -29],
+                     np.float32)
+    y = np.concatenate([rng.randn(20000) * 1e3, np.round(rng.randn(5000) * 50),
+                        edges, -edges, [0.0, -0.0, 0.0, -0.0, 3.0, -3.0]])
+    x = np.concatenate([rng.randn(20000) * 1e3, np.round(rng.randn(5000) * 50),
+                        np.ones(6), np.ones(6), [2.0, 2.0, -2.0, -2.0, 0.0,
+                                                 0.0]])
+    y, x = y.astype(np.float32), x.astype(np.float32)
+    want = np.asarray(jax.jit(jnp.arctan2)(jnp.asarray(y), jnp.asarray(x)))
+    got = te.atan2f(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+
+
+@pytest.mark.parametrize("size", tpyr.VERIFIED_SIZES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_pyramid_bit_exact_at_size(size):
+    """8-level pyramids of every size the resize accepts (the repo's
+    sequences, the image session's 240x376 included, and the common
+    datasets' sizes) are bit-exact against the reference's, built inside
+    one jit."""
+    h, w = size
+    img = (np.random.default_rng(h * 7 + w).random((h, w)) * 255).astype(
+        np.float32)
+    lj = jax.jit(lambda a: jpyr.build_pyramid(a, 8, 1.2))(jnp.asarray(img))
+    lt = tpyr.build_pyramid(torch.from_numpy(img), 8, 1.2)
+    for lvl, (a, b) in enumerate(zip(lj, lt)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                      err_msg=f"level {lvl}")
+
+
+def test_portrait_resize_raises():
+    """A 752x480 portrait image: the reference contracts width first in an
+    order the port does not reproduce yet, so the resize raises instead of
+    returning other bits (ROADMAP.md, C3)."""
+    img = torch.zeros((752, 480))
+    with pytest.raises(NotImplementedError, match="C3"):
+        tpyr.build_pyramid(img, 8, 1.2)
+
+
+@pytest.mark.parametrize("size", [(240, 320), (480, 480), (375, 1242)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_unverified_resize_raises(size):
+    """Landscape and square sizes whose deeper levels differ from the
+    reference's (240x320 from level 4, 480x480 from level 6, 375x1242 from
+    level 2; tests/torch_pyramid_probe.py) are not verified sizes, so the
+    resize raises instead of returning other bits (ROADMAP.md, C3)."""
+    assert size not in tpyr.VERIFIED_SIZES
+    with pytest.raises(NotImplementedError, match="C3"):
+        tpyr.build_pyramid(torch.zeros(size), 8, 1.2)
+
+
 def test_fast_detect_and_nms():
     """corner score, threshold map and two-threshold detect: bit-exact."""
     lv = np.asarray(jpyr.build_pyramid(jnp.asarray(_image(4)), 2, 1.2)[1])
@@ -166,9 +236,9 @@ def test_brief_bits_and_features_per_level():
                                         jnp.asarray(ang))),
         te.brief_descriptors(torch.from_numpy(patches),
                              torch.from_numpy(ang)).numpy().view(np.uint32))
-    np.testing.assert_allclose(
+    np.testing.assert_array_equal(
         np.asarray(je.ic_angle(jnp.asarray(patches))),
-        te.ic_angle(torch.from_numpy(patches)).numpy(), atol=1e-4)
+        te.ic_angle(torch.from_numpy(patches)).numpy())
     for n, lv in ((1024, 8), (256, 4), (100, 3)):
         assert te.features_per_level(n, lv, 1.2) == \
             je.features_per_level(n, lv, 1.2)

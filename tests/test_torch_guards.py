@@ -4,8 +4,10 @@
   not even lazily: a fresh interpreter with both blocked imports every
   module of the port and chip_smoke's module-level code.
 * A source scan finds no such import anywhere in them.
-* Entry points that create tensors run on CUDA unless told otherwise: with
-  no GPU and no ``device=``, they raise instead of running on the CPU.
+* Entry points that create tensors (the session's ``MonoTracker``, the
+  port's ``sim.render_frame`` and ``prng.uniform`` included) run on CUDA
+  unless told otherwise: with no GPU and no ``device=``, they raise
+  instead of running on the CPU.
 """
 
 import ast
@@ -17,11 +19,13 @@ import sys
 import pytest
 import torch
 
-from orb_slam_fusion_tpu_torch import lie, synth
+from orb_slam_fusion_tpu_torch import lie, sim, synth
+from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
 from orb_slam_fusion_tpu_torch.frontend.extractor import (OrbParams,
                                                           inv_scale_sigma2)
 from orb_slam_fusion_tpu_torch.map import convert
 from orb_slam_fusion_tpu_torch.map.map_state import make_empty_map
+from orb_slam_fusion_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 
@@ -84,9 +88,17 @@ def test_entry_points_refuse_cpu_without_device(monkeypatch):
         lambda: synth.build_world(__import__("numpy").random.RandomState(0),
                                   16, 1, 8, 120, 160),
         lambda: convert.features_from_numpy({}, None),
+        lambda: MonoTracker(SlamConfig(loop_closing=False)),
+        lambda: sim.render_frame(sim.make_corridor_world(4, 50), 0,
+                                 (400.0, 400.0, 376.0, 240.0), (480, 752),
+                                 16),
+        lambda: prng.uniform_bits(prng.PRNGKey(0), (4,)),
+        lambda: prng.uniform(prng.PRNGKey(0), (4,)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # an explicit CPU request runs
     assert make_empty_map(4, 8, 4, device="cpu").mp_pos.device.type == "cpu"
+    tr = MonoTracker(SlamConfig(loop_closing=False), device="cpu")
+    assert tr.map.mp_pos.device.type == "cpu"

@@ -176,3 +176,30 @@ def assert_map_close(mj, mt, atol=1e-4, skip=()):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def _pose_np(T):
+    return (np.asarray(T.R), np.asarray(T.t))
+
+
+def jax_tracker_state(tr):
+    """A reference MonoTracker's between-frame state as numpy, in the
+    format of ``convert.tracker_state_from_numpy``. Drains a background
+    local BA in flight first (it does not travel)."""
+    tr._lba_drain()
+    dev_stat = tr._last_kf_tracked_dev
+    return dict(
+        map=jax_map_to_numpy(tr.map), state=tr.state.name,
+        cur_pose=_pose_np(tr.cur_pose), velocity=_pose_np(tr.velocity),
+        last_pose=None if tr.last_pose is None else _pose_np(tr.last_pose),
+        last_kf_id=tr.last_kf_id, last_kf_tracked=tr.last_kf_tracked,
+        last_kf_tracked_dev=None if dev_stat is None else int(dev_stat),
+        frames_since_kf=tr.frames_since_kf, frame_id=tr.frame_id,
+        cur_obs=None if tr._cur_obs is None else np.asarray(tr._cur_obs),
+        lost_since=tr.lost_since,
+        ref_feats=(None if tr.ref_feats is None
+                   else jax_features_to_numpy(tr.ref_feats)),
+        ref_timestamp=tr.ref_timestamp,
+        traj_rel=[(ts, kf, _pose_np(T)) for ts, kf, T in tr._traj_rel],
+        trajectory=[(r.timestamp, _pose_np(r.pose), r.tracked, r.state)
+                    for r in tr.trajectory])
