@@ -65,7 +65,40 @@ Phases, each timed:
                the card. It must pass that test's gates: init within the
                first 25 frames, >= 75% of the frames after init tracked,
                ATE < 0.5 m; the golden's run is printed beside it.
-  8. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
+  8. stereo_session - ``StereoTracker(SlamConfig(loop_closing=False),
+               baseline=0.11)`` at the default widths (EuRoC pinhole,
+               480x752, 1024 features, 8192 map points, 256 keyframe
+               slots) on the stereo e2e sequence (corridor world, 70
+               frames, 5000 points, seed 7; render seed 31), against its
+               golden (``stereo_session_480x752.json``): init on frame 0,
+               tracked within 2 of the golden's and above 90%, metric ATE
+               (no scale alignment) under 0.08 m, keyframes within 2 and
+               map points within 5% of the golden's, exactly 3 kernel
+               launches on every tracked frame; a plain and a keyframe
+               frame profiled, and the last frame's three masked-match
+               calls checked bit-exact and timed alone;
+  9. stereo_images - ``process_stereo_images`` on 10 rendered 480x752
+               pairs remapped on the card through the EuRoC rig's
+               rectification maps (``stereo_rectify``/``rectify_map``); on
+               three frames the remapped images, both feature sets and the
+               refined right-image u the tracker used must equal the host
+               CPU's bit for bit;
+ 10. rgbd_session - ``RgbdTracker`` on the RGB-D e2e sequence (512
+               features, 6144 map points), held to that test's gates
+               (init on frame 0, > 90% tracked, metric ATE < 0.1 m) and its
+               golden's as above;
+ 11. fisheye_sessions - the Kannala-Brandt ``MonoTracker`` and
+               ``FisheyeStereoTracker`` on the fisheye e2e sequences
+               (512x512, 512 features), held to those tests' gates (> 80%
+               tracked and ATE < 0.05 m after init; > 90% and metric ATE
+               < 0.12 m) and their goldens', the fisheye-stereo step's
+               three masked-match calls checked and timed; then 8 frames
+               of ``process_image`` on rendered 512x512 KB8 images, an
+               extraction and initialization check: every frame's state
+               must equal the golden's (no frame initializes, in either
+               package) and the last frame's features must be
+               bit-identical on the card and the host CPU;
+ 12. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
                the ``{"ok": true, ...}`` line last.
 
 Each path's kernel launches are counted from 0 just before it runs and
@@ -469,6 +502,39 @@ IMAGE_CONFIG = dict(cam_params=(300.0, 300.0, 188.0, 120.0),
                     init_min_inliers=35)
 
 
+# the stereo-family sessions (tests/make_torch_goldens.py writes their
+# goldens from these values). stereo_session runs at SlamConfig's default
+# widths on the stereo e2e sequence; the others at their e2e tests' widths
+# (512 features, 6144 map points) on those tests' sequences.
+STEREO_WORLD = dict(n_frames=70, n_points=5000, seed=7)
+STEREO_RENDER = dict(n_features=1024, pixel_noise=0.3, desc_bit_flips=3,
+                     dropout=0.08, seed=31)
+STEREO_BASELINE = 0.11
+E2E_CONFIG = dict(cam_params=(400.0, 400.0, 376.0, 240.0),
+                  image_size=(480, 752), n_features=512, max_keyframes=64,
+                  max_map_points=6144, ba_window=6, loop_closing=False)
+RGBD_WORLD = dict(n_frames=60, n_points=5000, seed=9)
+RGBD_RENDER = dict(n_features=512, pixel_noise=0.3, desc_bit_flips=3,
+                   dropout=0.08, seed=41)
+RGBD_BASELINE = 0.08
+RGBD_DEPTH_SEED = 5
+# TUM-VI-like Kannala-Brandt 8 camera and a ~10 cm rig (test_fisheye_e2e)
+KB8 = (190.97847, 190.9733, 254.93170, 256.89742,
+       0.0034823894, 0.00077133023, -0.0000034, 0.00000069)
+T_C1_C2 = ((1.0, 0.0, 0.0, 0.101), (0.0, 1.0, 0.0, 0.002),
+           (0.0, 0.0, 1.0, 0.001), (0.0, 0.0, 0.0, 1.0))
+FISHEYE_CONFIG = dict(cam_model="kannala_brandt8", cam_params=KB8,
+                      image_size=(512, 512), n_features=512,
+                      max_keyframes=64, max_map_points=6144, ba_window=6,
+                      loop_closing=False)
+FISHEYE_MONO_WORLD = dict(n_frames=60, n_points=6000, seed=8)
+FISHEYE_MONO_RENDER = dict(n_features=512, pixel_noise=0.3,
+                           desc_bit_flips=3, dropout=0.08, seed=61)
+FISHEYE_STEREO_WORLD = dict(n_frames=50, n_points=6000, seed=11)
+FISHEYE_STEREO_RENDER = dict(n_features=512, pixel_noise=0.3,
+                             desc_bit_flips=3, dropout=0.08, seed=17)
+
+
 def _sha(*arrays):
     import hashlib
     import numpy as np
@@ -494,10 +560,7 @@ def _gentle_positions(T):
 
 
 def _image_config():
-    from orb_slam_fusion_tpu_torch.engine import SlamConfig
-    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
-    c = dict(IMAGE_CONFIG)
-    return SlamConfig(orb=OrbParams(n_features=c.pop("n_features")), **c)
+    return _config(IMAGE_CONFIG)
 
 
 def check_features(dev):
@@ -573,7 +636,10 @@ def _run_frames(step, tracker, make, golden, label):
     return [r for r, _ in recs], ms, launched, new_kf
 
 
-def _summary(label, tracker, world, recs, golden, ms, launched, new_kf):
+def _summary(label, tracker, world, recs, golden, ms, launched, new_kf,
+             with_scale=True):
+    """The session's readings beside the golden's; ``with_scale`` False
+    measures the ATE without scale alignment (the metric sessions)."""
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.io import align_horn, ate_rmse
 
@@ -584,7 +650,8 @@ def _summary(label, tracker, world, recs, golden, ms, launched, new_kf):
     if start is not None:
         traj = tracker.trajectory_tum()
         ate = float(ate_rmse(traj[start:, 1:4],
-                             sim.gt_positions(world)[start:len(traj)]))
+                             sim.gt_positions(world)[start:len(traj)],
+                             with_scale=with_scale))
     diff = [k for k, (r, g) in enumerate(zip(recs, golden["frames"]))
             if (r.state, int(r.tracked)) != (g["state"], g["tracked"])]
     # the two estimated trajectories against each other after init, each
@@ -640,10 +707,6 @@ def run_session(dev):
     """The monocular session at default widths against the JAX golden."""
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
-    from orb_slam_fusion_tpu_torch.engine import step
-    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
-    from orb_slam_fusion_tpu_torch.map.convert import features_from_numpy
-    from orb_slam_fusion_tpu_torch.utils.timing import STAGES
 
     golden = _golden("mono_session_480x752.json")
     cfg = SlamConfig(loop_closing=False)
@@ -655,24 +718,12 @@ def run_session(dev):
     def make(k):
         a = sim.render_frame_numpy(world, k, cfg.cam_params, cfg.image_size,
                                    nf, **r)
-        return (features_from_numpy(a, dev), float(world.timestamps[k]),
+        return (sim.features_on(a, dev), float(world.timestamps[k]),
                 _sha(*a.values()))
 
-    STAGES.reset()
-    STAGES.enable()
-    mm.launches = 0                      # counts start here ...
-    recs, ms, launched, new_kf = _run_frames(
-        tracker.process_features, tracker, make, golden, "session")
-    total = mm.launches                  # ... and are read here
-    STAGES.disable()
-    print("session stages (ms, 480x752):\n" + STAGES.report(), flush=True)
-    print("session stage ms " + json.dumps(
-        {k: [STAGES.count[k], STAGES.total[k] * 1e3 / STAGES.count[k]]
-         for k in STAGES.total}), flush=True)
-    out, states, start, ate = _summary("session", tracker, world, recs,
-                                       golden, ms, launched, new_kf)
-    if total != out["launches"]:
-        raise RuntimeError("launches outside the frames' own counts")
+    out, states, start, ate = _drive("session", tracker, world,
+                                     tracker.process_features, make, golden,
+                                     with_scale=True)
     if start is None:
         raise RuntimeError("the session never initialized")
     if out["tracked"] != golden["tracked"]:
@@ -695,25 +746,11 @@ def run_session(dev):
                            f"{SESSION_ATE_TOL_M} m)")
     # one plain tracked frame and one keyframe frame under the profiler,
     # each from a copy of the final state (re-tracking the last frame)
-    profile_session_frames(tracker, make(SESSION_WORLD["n_frames"] - 1))
+    last = make(SESSION_WORLD["n_frames"] - 1)
+    profile_session_frames(tracker, last)
     # the kernel alone at the session's map size: the three calls of one
     # more tracking step from the final state (counts not touched)
-    f = sim.render_frame(world, SESSION_WORLD["n_frames"] - 1,
-                         cfg.cam_params, cfg.image_size, nf, device=dev, **r)
-    pred = tracker.cur_pose
-    calls = capture_match_inputs(lambda: tracker._frame_update(
-        tracker.map.mp_visible.clone(), tracker.map.mp_found.clone(),
-        tracker.cur_pose, pred, f))
-    if len(calls) != step.MATCH_LAUNCHES_PER_FRAME:
-        raise RuntimeError(f"{len(calls)} masked-match calls in a session "
-                           f"tracking step")
-    out["match_calls"] = [
-        {k: c[k] for k in ("call", "M", "N", "visible_rows",
-                           "in_window_pairs", "kernel_ms", "call_ms",
-                           "plain_ms", "bound_ms", "bound_by")}
-        for c in (time_match_call(f"session {name}", *args)
-                  for name, args in zip(("coarse", "widened", "fine"),
-                                        calls))]
+    out["match_calls"] = _session_calls("session", tracker, last[0])
     return out
 
 
@@ -721,7 +758,6 @@ def run_image_session(dev):
     """process_image over the image e2e sequence, held to its gates."""
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.engine import MonoTracker
-    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
 
     golden = _golden("image_session_240x376.json")
     cfg = _image_config()
@@ -735,14 +771,9 @@ def run_image_session(dev):
         img = sim.render_image(world, k, cfg.cam_params, cfg.image_size)
         return img, float(world.timestamps[k]), _sha(img)
 
-    mm.launches = 0                      # counts start here ...
-    recs, ms, launched, new_kf = _run_frames(
-        tracker.process_image, tracker, make, golden, "image_session")
-    total = mm.launches                  # ... and are read here
-    out, states, start, ate = _summary("image_session", tracker, world, recs,
-                                       golden, ms, launched, new_kf)
-    if total != out["launches"]:
-        raise RuntimeError("launches outside the frames' own counts")
+    out, states, start, ate = _drive("image_session", tracker, world,
+                                     tracker.process_image, make, golden,
+                                     with_scale=True)
     if start is None or start >= T // 2:
         raise RuntimeError(f"image session initialized at {start}")
     if out["tracked"] < int((T - start) * 0.75):
@@ -753,10 +784,395 @@ def run_image_session(dev):
     return out
 
 
-def profile_session_frames(tracker, frame):
+# EuRoC MAV's unrectified stereo rig (the calibration tests/test_settings.py
+# carries, reference settings EuRoC.yaml): K, radial-tangential distortion,
+# and T_c1_c2
+EUROC_K1 = ((458.654, 0.0, 367.215), (0.0, 457.296, 248.375),
+            (0.0, 0.0, 1.0))
+EUROC_D1 = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
+EUROC_K2 = ((457.587, 0.0, 379.999), (0.0, 456.134, 255.238),
+            (0.0, 0.0, 1.0))
+EUROC_D2 = (-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05)
+EUROC_T_C1_C2 = (
+    (0.999997256477797, -0.002317135723275, -0.000343393120620,
+     0.110074137800478),
+    (0.002312067192432, 0.999898048507103, -0.014090668452683,
+     -0.000156612054392),
+    (0.000376008102320, 0.014089835846691, 0.999900662638081,
+     0.000889382785432),
+    (0.0, 0.0, 0.0, 1.0))
+STEREO_IMAGE_FRAMES = 10
+FISHEYE_IMAGE_FRAMES = 8
+
+
+def _config(c):
+    """A port SlamConfig from a settings dict with ``n_features``."""
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig
+    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
+    c = dict(c)
+    return SlamConfig(orb=OrbParams(n_features=c.pop("n_features")), **c)
+
+
+def _family_gates(label, out, golden, n_frames, min_tracked, ate_gate,
+                  states, start, ate, init_frame=None):
+    """The gates every stereo-family session shares: its e2e test's
+    (tracked share, ATE) and the golden's (tracked within 2, keyframes
+    within 2 or 5%, map points within 5%), and 3 kernel launches on every
+    tracked frame."""
+    if start is None or (init_frame is not None and start != init_frame):
+        raise RuntimeError(f"{label} initialized at {start}, expected "
+                           f"{init_frame}")
+    if not out["tracked"] > min_tracked * n_frames:
+        raise RuntimeError(f"{label} tracked {out['tracked']} of {n_frames}")
+    if abs(out["tracked"] - golden["tracked"]) > 2:
+        raise RuntimeError(f"{label} tracked {out['tracked']}, the golden "
+                           f"{golden['tracked']}")
+    if not ate < ate_gate:
+        raise RuntimeError(f"{label} ATE {ate} m (gate {ate_gate} m)")
+    for key, floor in (("n_kf", SESSION_KF_TOL), ("n_mp", 0)):
+        if abs(out[key] - golden[key]) > max(floor, SESSION_MP_RTOL
+                                             * golden[key]):
+            raise RuntimeError(f"{label} ends with {key} {out[key]}, the "
+                               f"golden {golden[key]}")
+    from orb_slam_fusion_tpu_torch.engine.step import (
+        MATCH_LAUNCHES_PER_FRAME)
+    if out["launches_tracked"] != MATCH_LAUNCHES_PER_FRAME * out["ok_frames"]:
+        raise RuntimeError(f"{label}: {out['launches_tracked']} masked-match "
+                           f"launches over {out['ok_frames']} tracked frames")
+
+
+def _session_calls(label, tracker, feats):
+    """The three masked-match calls of one more tracking step from the
+    session's final state, each checked bit-exact and timed alone."""
+    from orb_slam_fusion_tpu_torch.engine import step
+    calls = capture_match_inputs(lambda: tracker._frame_update(
+        tracker.map.mp_visible.clone(), tracker.map.mp_found.clone(),
+        tracker.cur_pose, tracker.cur_pose, feats))
+    if len(calls) != step.MATCH_LAUNCHES_PER_FRAME:
+        raise RuntimeError(f"{len(calls)} masked-match calls in a {label} "
+                           f"tracking step")
+    return [{k: c[k] for k in ("call", "M", "N", "visible_rows",
+                               "in_window_pairs", "kernel_ms", "call_ms",
+                               "plain_ms", "bound_ms", "bound_by",
+                               "dense_bound_ms")}
+            for c in (time_match_call(f"{label} {name}", *args)
+                      for name, args in zip(("coarse", "widened", "fine"),
+                                            calls))]
+
+
+def _drive(label, tracker, world, step, make, golden, with_scale):
+    """Run a session over the golden's frames with the launch counts
+    zeroed just before and read just after; returns the summary."""
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.utils.timing import STAGES
+
+    STAGES.reset()
+    STAGES.enable()
+    mm.launches = 0                      # counts start here ...
+    recs, ms, launched, new_kf = _run_frames(step, tracker, make, golden,
+                                             label)
+    total = mm.launches                  # ... and are read here
+    STAGES.disable()
+    print(f"{label} stages (ms):\n" + STAGES.report(), flush=True)
+    print(f"{label} stage ms " + json.dumps(
+        {k: [STAGES.count[k], STAGES.total[k] * 1e3 / STAGES.count[k]]
+         for k in STAGES.total}), flush=True)
+    out, states, start, ate = _summary(label, tracker, world, recs, golden,
+                                       ms, launched, new_kf,
+                                       with_scale=with_scale)
+    if total != out["launches"]:
+        raise RuntimeError(f"{label}: launches outside the frames' counts")
+    return out, states, start, ate
+
+
+def run_stereo_session(dev):
+    """StereoTracker at SlamConfig's default widths on the stereo e2e
+    sequence against its golden (phase ``stereo_session``)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import StereoTracker
+
+    golden = _golden("stereo_session_480x752.json")
+    cfg = SlamConfig(loop_closing=False)
+    world = sim.make_corridor_world(**STEREO_WORLD)
+    r = dict(STEREO_RENDER)
+    nf = r.pop("n_features")
+    tracker = StereoTracker(cfg, baseline=STEREO_BASELINE, device=dev)
+
+    def make(k):
+        pair = sim.render_stereo_frame_numpy(
+            world, k, cfg.cam_params, cfg.image_size, nf, STEREO_BASELINE,
+            **r)
+        return (tuple(sim.features_on(a, dev) for a in pair),
+                float(world.timestamps[k]),
+                _sha(*(v for a in pair for v in a.values())))
+
+    def step(pair, ts):
+        return tracker.process_stereo_features(*pair, ts)
+
+    out, states, start, ate = _drive("stereo_session", tracker, world, step,
+                                     make, golden, with_scale=False)
+    _family_gates("stereo_session", out, golden, STEREO_WORLD["n_frames"],
+                  0.9, 0.08, states, start, ate, init_frame=0)
+    last = make(STEREO_WORLD["n_frames"] - 1)
+    profile_session_frames(
+        tracker, last, "stereo_session",
+        lambda tr, pair, ts: tr.process_stereo_features(*pair, ts))
+    out["match_calls"] = _session_calls("stereo_session", tracker,
+                                        last[0][0])
+    return out
+
+
+def _rgbd_depth(world, k, uv, rng, cam):
+    """test_rgbd_e2e.py's per-feature depth: the nearest projected world
+    point's depth with 0.5% noise, -1 beyond 3 px (host numpy)."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch import sim
+    pc = sim.se3_apply(sim.SE3(world.poses.R[k], world.poses.t[k]),
+                       world.points)
+    uvw = sim.project(cam, pc)
+    d2 = ((uv[:, None, :] - uvw[None, :, :]) ** 2).sum(-1)
+    d2[:, pc[:, 2] < 0.1] = 1e12
+    nearest = d2.argmin(axis=1)
+    depth = pc[nearest, 2] * (1.0 + rng.randn(len(nearest)) * 0.005)
+    depth = np.where(d2[np.arange(len(nearest)), nearest] < 9.0, depth, -1.0)
+    return np.asarray(depth, np.float32)
+
+
+def run_rgbd_session(dev):
+    """RgbdTracker on the RGB-D e2e sequence at its widths."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import RgbdTracker
+
+    golden = _golden("rgbd_session_480x752.json")
+    cfg = _config(E2E_CONFIG)
+    world = sim.make_corridor_world(**RGBD_WORLD)
+    r = dict(RGBD_RENDER)
+    nf = r.pop("n_features")
+    rng = np.random.RandomState(RGBD_DEPTH_SEED)
+    tracker = RgbdTracker(cfg, baseline=RGBD_BASELINE, device=dev)
+
+    def make(k):
+        a = sim.render_frame_numpy(world, k, cfg.cam_params, cfg.image_size,
+                                   nf, **r)
+        depth = _rgbd_depth(world, k, a["uv"], rng, cfg.cam_params)
+        return ((sim.features_on(a, dev), torch.from_numpy(depth).to(dev)),
+                float(world.timestamps[k]), _sha(*a.values(), depth))
+
+    def step(inputs, ts):
+        return tracker.process_rgbd_features(*inputs, ts)
+
+    out, states, start, ate = _drive("rgbd_session", tracker, world, step,
+                                     make, golden, with_scale=False)
+    _family_gates("rgbd_session", out, golden, RGBD_WORLD["n_frames"], 0.9,
+                  0.1, states, start, ate, init_frame=0)
+    return out
+
+
+def run_fisheye_sessions(dev):
+    """The Kannala-Brandt sessions at the fisheye e2e test's widths: the
+    monocular one and the fisheye-stereo one against their goldens, then
+    ``process_image`` on rendered 512x512 KB8 images, whose states must
+    equal the golden's and whose extraction on the card must equal the
+    host CPU's."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import (
+        FisheyeStereoTracker)
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.frontend.extractor import extract_features
+
+    cfg = _config(FISHEYE_CONFIG)
+    outs = {}
+
+    golden = _golden("fisheye_mono_session_512x512.json")
+    world = sim.make_corridor_world(**FISHEYE_MONO_WORLD)
+    r = dict(FISHEYE_MONO_RENDER)
+    nf = r.pop("n_features")
+    tracker = MonoTracker(cfg, device=dev)
+
+    def make_mono(k):
+        a = sim.render_frame_numpy(world, k, cfg.cam_params, cfg.image_size,
+                                   nf, cam_model=cfg.cam_model, **r)
+        return (sim.features_on(a, dev), float(world.timestamps[k]),
+                _sha(*a.values()))
+
+    out, states, start, ate = _drive("fisheye_mono", tracker, world,
+                                     tracker.process_features, make_mono,
+                                     golden, with_scale=True)
+    _family_gates("fisheye_mono", out, golden,
+                  FISHEYE_MONO_WORLD["n_frames"], 0.8, 0.05, states, start,
+                  ate, init_frame=golden["init_frame"])
+    outs["fisheye_mono"] = out
+
+    golden = _golden("fisheye_stereo_session_512x512.json")
+    world = sim.make_corridor_world(**FISHEYE_STEREO_WORLD)
+    r = dict(FISHEYE_STEREO_RENDER)
+    nf = r.pop("n_features")
+    T12 = np.asarray(T_C1_C2)
+    tracker = FisheyeStereoTracker(cfg, cfg.cam_params, T12, device=dev)
+
+    def make_pair(k):
+        pair = sim.render_fisheye_stereo_frame_numpy(
+            world, k, cfg.cam_params, cfg.cam_params, cfg.image_size, nf,
+            T12, **r)
+        return (tuple(sim.features_on(a, dev) for a in pair),
+                float(world.timestamps[k]),
+                _sha(*(v for a in pair for v in a.values())))
+
+    def step(pair, ts):
+        return tracker.process_stereo_features(*pair, ts)
+
+    out, states, start, ate = _drive("fisheye_stereo", tracker, world,
+                                     step, make_pair, golden,
+                                     with_scale=False)
+    _family_gates("fisheye_stereo", out, golden,
+                  FISHEYE_STEREO_WORLD["n_frames"], 0.9, 0.12, states, start,
+                  ate, init_frame=0)
+    out["match_calls"] = _session_calls(
+        "fisheye_stereo", tracker,
+        make_pair(FISHEYE_STEREO_WORLD["n_frames"] - 1)[0][0])
+    outs["fisheye_stereo"] = out
+
+    # process_image on KB8 images: the 512x512 pyramid, extraction and
+    # two-view initialization inside a session. On these frames the JAX
+    # package's session never initializes (its golden), so this checks
+    # the image front end and the init's states, not tracking.
+    golden = _golden("fisheye_image_session_512x512.json")
+    tracker = MonoTracker(cfg, device=dev)
+    world = sim.make_corridor_world(**FISHEYE_MONO_WORLD)
+    rows = []
+    mm.launches = 0                      # counts start here ...
+    for k in range(FISHEYE_IMAGE_FRAMES):
+        img = sim.render_image(world, k, cfg.cam_params, cfg.image_size,
+                               cam_model=cfg.cam_model)
+        g = golden["frames"][k]
+        if _sha(img) != g["inputs_sha256"]:
+            raise RuntimeError(f"fisheye image {k}: input differs from the "
+                               f"golden's")
+        rec = tracker.process_image(img, float(world.timestamps[k]))
+        rows.append([rec.state, int(rec.tracked), g["state"], g["tracked"]])
+        if rec.state != g["state"]:
+            raise RuntimeError(f"fisheye image {k}: state {rec.state}, the "
+                               f"golden's {g['state']}")
+    launched = mm.launches               # ... and are read here
+    card = extract_features(torch.from_numpy(img).to(dev), cfg.orb)
+    host = extract_features(torch.from_numpy(img), cfg.orb)
+    for field in card._fields:
+        if not torch.equal(getattr(card, field).cpu(), getattr(host, field)):
+            raise RuntimeError(f"fisheye 512x512 image: {field} differs "
+                               f"between the card and the host CPU")
+    if not all(np.isfinite(tracker.trajectory_tum()[:, 1:]).ravel()):
+        raise RuntimeError("fisheye image session: non-finite poses")
+    outs["fisheye_images"] = dict(frames=FISHEYE_IMAGE_FRAMES,
+                                  state_inliers_golden=rows,
+                                  launches=launched,
+                                  keypoints=int(host.valid.sum()))
+    print("fisheye_images " + json.dumps(outs["fisheye_images"]) + "; "
+          "states equal to the golden's, features of the last 512x512 "
+          "frame bit-identical on the card and the host CPU", flush=True)
+    return outs
+
+
+def _euroc_rectification():
+    """Maps and rectified intrinsics of the EuRoC rig (host float64)."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch.frontend import rectify
+    K1, K2 = np.asarray(EUROC_K1), np.asarray(EUROC_K2)
+    D1, D2 = np.asarray(EUROC_D1), np.asarray(EUROC_D2)
+    T21 = np.linalg.inv(np.asarray(EUROC_T_C1_C2))
+    size = (IMG_W, IMG_H)
+    R1, R2, P1, P2 = rectify.stereo_rectify(K1, D1, K2, D2, T21[:3, :3],
+                                            T21[:3, 3], size)
+    maps = (rectify.rectify_map(K1, D1, R1, P1[:, :3], size),
+            rectify.rectify_map(K2, D2, R2, P2[:, :3], size))
+    cam = (P1[0, 0], P1[1, 1], P1[0, 2], P1[1, 2])
+    return maps, cam, abs(P2[0, 3] / P2[0, 0])
+
+
+def run_stereo_images(dev):
+    """``process_stereo_images`` at 480x752: rendered pairs remapped
+    through the EuRoC rectification maps on the card. On three frames the
+    features of both images and the refined right-image u the tracker used
+    must equal the host CPU's bit for bit."""
+    import torch
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import StereoTracker
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.frontend.extractor import extract_features
+    from orb_slam_fusion_tpu_torch.frontend.rectify import remap_stereo_pair
+    from orb_slam_fusion_tpu_torch.frontend.stereo import (
+        stereo_match, subpixel_refine)
+
+    maps, cam, baseline = _euroc_rectification()
+    cfg = SlamConfig(loop_closing=False, cam_params=cam)
+    world = sim.make_corridor_world(**STEREO_WORLD)
+    raw_cam = (EUROC_K1[0][0], EUROC_K1[1][1], EUROC_K1[0][2],
+               EUROC_K1[1][2])
+    tracker = StereoTracker(cfg, baseline=baseline, device=dev)
+    maps_dev = [torch.from_numpy(m).to(dev) for m in maps]
+    states, checked = [], 0
+    mm.launches = 0                      # counts start here ...
+    for k in range(STEREO_IMAGE_FRAMES):
+        raw = [sim.render_image(world, k, raw_cam, cfg.image_size),
+               sim.render_image(world, k, raw_cam, cfg.image_size,
+                                pose_override=sim.stereo_right_pose(
+                                    world, k, STEREO_BASELINE))]
+        imgs = remap_stereo_pair(*(torch.from_numpy(a).to(dev) for a in raw),
+                                 *maps_dev)
+        before = mm.launches
+        rec = tracker.process_stereo_images(*imgs, float(world.timestamps[k]))
+        n = mm.launches - before
+        states.append(rec.state)
+        if rec.state == "ok" and n != 3:
+            raise RuntimeError(f"stereo_images frame {k}: {n} launches")
+        if k not in (0, STEREO_IMAGE_FRAMES // 2, STEREO_IMAGE_FRAMES - 1):
+            continue
+        host = remap_stereo_pair(*(torch.from_numpy(a) for a in raw),
+                                 *(torch.from_numpy(m) for m in maps))
+        for a, b in zip(imgs, host):
+            if not torch.equal(a.cpu(), b):
+                raise RuntimeError(f"stereo_images frame {k}: the remapped "
+                                   f"image differs between card and CPU")
+        fh = [extract_features(b, cfg.orb) for b in host]
+        fc = [extract_features(a, cfg.orb) for a in imgs]
+        for c, hf in zip(fc, fh):
+            for field in c._fields:
+                if not torch.equal(getattr(c, field).cpu(),
+                                   getattr(hf, field)):
+                    raise RuntimeError(f"stereo_images frame {k}: {field} "
+                                       f"differs between card and CPU")
+        ur, ok = stereo_match(*fh)
+        ur, ok = subpixel_refine(host[0], host[1], fh[0].uv, ur, ok)
+        if not (torch.equal(tracker._cur_uright.cpu(), ur)
+                and torch.equal(tracker._cur_has_stereo.cpu(), ok)):
+            raise RuntimeError(f"stereo_images frame {k}: the refined right "
+                               f"u differs between card and CPU")
+        checked += 1
+        print(f"stereo_images frame {k}: remap, features "
+              f"({int(fh[0].valid.sum())} + {int(fh[1].valid.sum())} "
+              f"keypoints) and refined u_right ({int(ok.sum())} stereo) "
+              f"bit-identical on the card and the host CPU", flush=True)
+    launched = mm.launches               # ... and are read here
+    out = dict(frames=STEREO_IMAGE_FRAMES, states=states, launches=launched,
+               frames_checked=checked, rectified_cam=list(cam),
+               baseline_m=baseline)
+    print("stereo_images " + json.dumps(out), flush=True)
+    return out
+
+
+def profile_session_frames(tracker, frame, label="session",
+                           step=lambda tr, feats, ts: tr.process_features(
+                               feats, ts)):
     """Device-busy time and launches of one session frame of each kind:
     a tracked frame that inserts no keyframe, and one that does (forced by
-    the keyframe interval), each run on its own copy of ``tracker``."""
+    the keyframe interval), each run on its own copy of ``tracker``
+    through ``step(copy, inputs, timestamp)``."""
     import copy
     feats, ts, _ = frame
 
@@ -772,10 +1188,10 @@ def profile_session_frames(tracker, frame):
             out.append(c)
         return out
 
-    runs = {"session plain frame": copies(False),
-            "session keyframe frame": copies(True)}
-    profile_stages({name: (lambda name=name: runs[name].pop()
-                           .process_features(feats, ts))
+    runs = {f"{label} plain frame": copies(False),
+            f"{label} keyframe frame": copies(True)}
+    profile_stages({name: (lambda name=name: step(runs[name].pop(), feats,
+                                                  ts))
                     for name in runs})
 
 
@@ -874,6 +1290,22 @@ def main():
     _phase("image_session", t0)
 
     t0 = time.perf_counter()
+    stereo = run_stereo_session(dev)
+    _phase("stereo_session", t0)
+
+    t0 = time.perf_counter()
+    stereo_images = run_stereo_images(dev)
+    _phase("stereo_images", t0)
+
+    t0 = time.perf_counter()
+    rgbd = run_rgbd_session(dev)
+    _phase("rgbd_session", t0)
+
+    t0 = time.perf_counter()
+    fisheye = run_fisheye_sessions(dev)
+    _phase("fisheye_sessions", t0)
+
+    t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
              stages.items()}
     print("stage ms (mean over the 16-frame run; mapping and local_ba per "
@@ -883,7 +1315,20 @@ def main():
     report["launches_by_path"] = {
         "bench_frames": launches["masked_match"],
         "session": session["launches"],
-        "image_session": image["launches"]}
+        "image_session": image["launches"],
+        "stereo_session": stereo["launches"],
+        "stereo_images": stereo_images["launches"],
+        "rgbd_session": rgbd["launches"],
+        "fisheye_mono": fisheye["fisheye_mono"]["launches"],
+        "fisheye_stereo": fisheye["fisheye_stereo"]["launches"],
+        "fisheye_images": fisheye["fisheye_images"]["launches"]}
+    report["tracked_frames_by_path"] = {
+        "session": session["ok_frames"], "stereo_session":
+        stereo["ok_frames"], "rgbd_session": rgbd["ok_frames"],
+        "fisheye_mono": fisheye["fisheye_mono"]["ok_frames"],
+        "fisheye_stereo": fisheye["fisheye_stereo"]["ok_frames"]}
+    report["stereo_session_calls"] = stereo["match_calls"]
+    report["fisheye_stereo_calls"] = fisheye["fisheye_stereo"]["match_calls"]
     report["launches_per_bench_frame"] = launches["masked_match"] / FRAMES
     report["session_launches_per_tracked_frame"] = (
         session["launches_tracked"] / max(session["ok_frames"], 1))

@@ -1,23 +1,43 @@
-"""Pinhole camera model and two-view triangulation.
+"""Camera models (pinhole, Kannala-Brandt 8, radial-tangential) and
+two-view triangulation.
 
-Counterpart of ``orb_slam_fusion_tpu/cameras.py`` for the pinhole model
-(parameters ``[fx, fy, cx, cy]``) and the midpoint + Gauss-Newton
-triangulation the mapping step uses. The Kannala-Brandt and radial-
-tangential models are not ported yet; the model name is still an argument
-so call sites read like the reference's.
+Counterpart of ``orb_slam_fusion_tpu/cameras.py``. Parameter layouts:
+pinhole ``[fx, fy, cx, cy]``; Kannala-Brandt 8 (equidistant fisheye)
+``[fx, fy, cx, cy, k1, k2, k3, k4]`` with d(theta) = theta + k1 th^3 +
+k2 th^5 + k3 th^7 + k4 th^9. Every function broadcasts over leading batch
+dimensions and runs on the device of its inputs.
+
+Each expression keeps the reference's operation order, one float32
+rounding per operation, which is what the reference's eager calls (the
+simulator's projections, the tracker's keypoint undistortion) give on
+XLA:CPU, so those come out bit for bit; the arctangent is glibc's
+``atan2f`` (``frontend/extractor.py::atan2f``), which XLA:CPU calls.
+Inside the reference's compiled programs XLA may contract a product and
+a sum into one fused multiply-add, so there the two agree to float32
+rounding.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .frontend.extractor import atan2f
+
 PINHOLE = "pinhole"
+KANNALA_BRANDT8 = "kannala_brandt8"
 
 _EPS = 1e-9
 
 
 def _safe_z(z: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.abs(z) < _EPS, torch.full_like(z, _EPS), z)
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as the reference's weak-typed float32 scalar."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 def pinhole_project(params: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
@@ -50,27 +70,113 @@ def pinhole_unproject(params: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
 
-def _check(model: str) -> None:
-    if model != PINHOLE:
-        raise ValueError(f"camera model {model!r} is not ported yet")
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root, correctly rounded as XLA's (through float64:
+    torch's vectorised CPU sqrt may be off by an ulp)."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _kb8_radius(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return _sqrt(torch.maximum(x * x + y * y, _f32(_EPS * _EPS, x)))
+
+
+def _kb8_d(theta, th2, k1, k2, k3, k4):
+    return theta * (1.0 + th2 * (k1 + th2 * (k2 + th2 * (k3 + th2 * k4))))
+
+
+def _kb8_dd(th2, k1, k2, k3, k4):
+    return 1.0 + th2 * (3 * k1 + th2 * (5 * k2 + th2 * (7 * k3
+                                                        + th2 * 9 * k4)))
+
+
+def kb8_project(params: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """Kannala-Brandt 8 fisheye projection (...,3) -> (...,2)."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k1, k2, k3, k4 = params[4], params[5], params[6], params[7]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    r = _kb8_radius(x, y)
+    theta = atan2f(r, z)
+    th2 = theta * theta
+    scale = _kb8_d(theta, th2, k1, k2, k3, k4) / r
+    u = fx * scale * x + cx
+    v = fy * scale * y + cy
+    return torch.stack([u, v], dim=-1)
+
+
+def kb8_project_jac(params: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
+    """Analytic d(uv)/d(xyz) for KB8: (..., 2, 3), finite at pc = 0 (the
+    radius is clamped in every division, as the reference's)."""
+    fx, fy = params[0], params[1]
+    k1, k2, k3, k4 = params[4], params[5], params[6], params[7]
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    r = _kb8_radius(x, y)
+    theta = atan2f(r, z)
+    th2 = theta * theta
+    d = _kb8_d(theta, th2, k1, k2, k3, k4)
+    dd_dth = _kb8_dd(th2, k1, k2, k3, k4)
+    norm2 = r * r + z * z
+    dth_dr = z / norm2
+    dth_dz = -r / norm2
+    dr_dx = x / r
+    dr_dy = y / r
+    dscale_dr = (dd_dth * dth_dr * r - d) / (r * r)
+    dscale_dz = dd_dth * dth_dz / r
+    scale = d / r
+    row0 = torch.stack([fx * (dscale_dr * dr_dx * x + scale),
+                        fx * (dscale_dr * dr_dy * x),
+                        fx * dscale_dz * x], dim=-1)
+    row1 = torch.stack([fy * (dscale_dr * dr_dx * y),
+                        fy * (dscale_dr * dr_dy * y + scale),
+                        fy * dscale_dz * y], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
+def kb8_unproject(params: torch.Tensor, uv: torch.Tensor,
+                  num_iters: int = 10) -> torch.Tensor:
+    """KB8 unprojection to unit-depth rays (z = 1): a fixed count of
+    Newton steps on theta, as the reference's ``fori_loop``."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k1, k2, k3, k4 = params[4], params[5], params[6], params[7]
+    mx = (uv[..., 0] - cx) / fx
+    my = (uv[..., 1] - cy) / fy
+    rd = _sqrt(mx * mx + my * my)
+    rd = torch.minimum(rd, _f32(math.pi / 2.0, rd))
+    th = rd
+    for _ in range(num_iters):
+        th2 = th * th
+        th = th - (_kb8_d(th, th2, k1, k2, k3, k4) - rd) / _kb8_dd(
+            th2, k1, k2, k3, k4)
+    eps = _f32(_EPS, rd)
+    scale = torch.where(rd > eps, torch.tan(th) / torch.maximum(rd, eps),
+                        torch.ones_like(rd))
+    return torch.stack([mx * scale, my * scale, torch.ones_like(mx)], dim=-1)
 
 
 def project(model: str, params: torch.Tensor, xyz: torch.Tensor
             ) -> torch.Tensor:
-    _check(model)
-    return pinhole_project(params, xyz)
+    if model == PINHOLE:
+        return pinhole_project(params, xyz)
+    if model == KANNALA_BRANDT8:
+        return kb8_project(params, xyz)
+    raise ValueError(f"unknown camera model {model!r}")
 
 
 def project_jac(model: str, params: torch.Tensor, xyz: torch.Tensor
                 ) -> torch.Tensor:
-    _check(model)
-    return pinhole_project_jac(params, xyz)
+    if model == PINHOLE:
+        return pinhole_project_jac(params, xyz)
+    if model == KANNALA_BRANDT8:
+        return kb8_project_jac(params, xyz)
+    raise ValueError(f"unknown camera model {model!r}")
 
 
 def unproject(model: str, params: torch.Tensor, uv: torch.Tensor
               ) -> torch.Tensor:
-    _check(model)
-    return pinhole_unproject(params, uv)
+    if model == PINHOLE:
+        return pinhole_unproject(params, uv)
+    if model == KANNALA_BRANDT8:
+        return kb8_unproject(params, uv)
+    raise ValueError(f"unknown camera model {model!r}")
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -133,3 +239,41 @@ def triangulate(ray1: torch.Tensor, ray2: torch.Tensor, R21: torch.Tensor,
     """Default triangulation: midpoint init + Gauss-Newton polish."""
     X0 = triangulate_midpoint(ray1, ray2, R21, t21)
     return triangulate_refine(X0, ray1, ray2, R21, t21)
+
+
+def _radtan(dist: torch.Tensor):
+    k3 = dist[4] if dist.shape[0] > 4 else 0.0
+    return dist[0], dist[1], dist[2], dist[3], k3
+
+
+def radtan_distort_normalized(dist: torch.Tensor, xy: torch.Tensor
+                              ) -> torch.Tensor:
+    """Radial-tangential (plumb-bob) distortion of normalized coordinates
+    (..., 2); ``dist`` = (k1, k2, p1, p2[, k3])."""
+    k1, k2, p1, p2, k3 = _radtan(dist)
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    rad = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * rad + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * rad + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def undistort_points(params: torch.Tensor, dist: torch.Tensor,
+                     uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Undistort pixel keypoints under the radial-tangential model:
+    normalize by K, invert the distortion by ``iters`` fixed-point steps
+    (cv::undistortPoints' scheme), re-apply K."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    xd = (uv[..., 0] - cx) / fx
+    yd = (uv[..., 1] - cy) / fy
+    k1, k2, p1, p2, k3 = _radtan(dist)
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        rad = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / rad
+        y = (yd - dy) / rad
+    return torch.stack([x * fx + cx, y * fy + cy], dim=-1)

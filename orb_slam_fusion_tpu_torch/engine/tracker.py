@@ -9,11 +9,15 @@ CUDA kernel on a CUDA device), the mapping step and local BA. Names,
 structure and host bookkeeping (numpy, as in the reference) follow the
 reference so each counterpart is easy to find.
 
+Cameras: pinhole (with radial-tangential keypoint undistortion for a
+non-zero ``distortion``) and Kannala-Brandt 8. The stereo, RGB-D and
+fisheye-stereo sessions subclass this one (``engine/stereo_tracker.py``).
+
 Not ported yet, and refused rather than ignored: loop closing,
-relocalization and map merging (``loop_closing=True``, ROADMAP A13), the
-distributed paths (``mesh_devices > 0``, A15) and keypoint undistortion
-(a non-zero ``distortion``, A11). Without a loop closer the reference's
-``_try_relocalize`` returns False, and so does the port's.
+relocalization and map merging (``loop_closing=True``, ROADMAP A13) and
+the distributed paths (``mesh_devices > 0``, A15). Without a loop closer
+the reference's ``_try_relocalize`` returns False, and so does the
+port's.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .. import cameras, lie, resolve_device, two_view
 from ..frontend import extractor, matcher
 from ..map import map_state as ms
 from ..solver import ba as ba_mod
+from ..solver.local_ba import stereo_args
 from ..utils import masked_set, prng
 from ..utils.timing import STAGES, stage
 from .config import SlamConfig
@@ -53,6 +58,24 @@ def _pose_at(m: ms.MapState, k: int) -> lie.SE3:
 
 def _host(T: lie.SE3):
     return T.R.detach().cpu().numpy(), T.t.detach().cpu().numpy()
+
+
+# A rotation's distance from SO(3) (max |R^T R - I|, ~100 float32 ulps)
+# past which the background BA's shift of the live pose re-orthonormalizes
+# it. The shift, cur o inv(old) o new with inv a transpose, triples the
+# distance its rotations share, and keyframes made from the live pose
+# carry it on. How often that happens is decided by rounding: one ulp of
+# translation at frame 1 takes the JAX package's own stereo session from
+# 3.7 mm to 0.16 m of ATE (tests/torch_rotation_drift.py). The JAX
+# package has no such step (ROADMAP C6); below the bound the port keeps
+# its semantics.
+ROTATION_DRIFT_TOL = 1e-5
+
+
+def keep_on_so3(T: lie.SE3) -> lie.SE3:
+    if float(lie.so3_orthonormality_error(T.R)) <= ROTATION_DRIFT_TOL:
+        return T
+    return lie.SE3(lie.so3_normalize(T.R), T.t)
 
 
 class ChunkedLocalBA:
@@ -81,10 +104,14 @@ class ChunkedLocalBA:
             octv, 0, cfg.orb.num_levels - 1).long()]
         poses = lie.SE3(m.kf_pose.R[self.wclip], m.kf_pose.t[self.wclip])
         fixed_t = torch.as_tensor(np.asarray(fixed), device=dev)
+        # stereo sessions add their right-image u rows (reference
+        # tracker.py:116-124)
         prob = ba_mod.make_window_problem(
             poses, m.mp_pos, kf_idx, mp_idx, uv, inv_s2, valid,
             fixed_t | (self.win < 0), tracker.cam_params, window_size=W,
-            fixed_point=~m.mp_valid)
+            fixed_point=~m.mp_valid,
+            **stereo_args(getattr(tracker, "kf_uright", None),
+                          getattr(tracker, "bf", 0.0), self.wclip, valid))
         self.valid = valid
         self.lm = ba_mod.ChunkedLM(prob, cfg.cam_model, cfg.ba_iters_first,
                                    cfg.ba_iters_second, chunk,
@@ -115,10 +142,9 @@ class MonoTracker:
             raise NotImplementedError(
                 "distributed tracking and BA (mesh_devices > 0) are not "
                 "ported yet (ROADMAP A15)")
-        if config.cam_model != cameras.PINHOLE:
-            raise NotImplementedError(
-                f"camera model {config.cam_model!r} is not ported yet "
-                f"(ROADMAP A11)")
+        if config.cam_model not in (cameras.PINHOLE,
+                                    cameras.KANNALA_BRANDT8):
+            raise ValueError(f"unknown camera model {config.cam_model!r}")
         self.cfg = config
         self.device = resolve_device(device)
         dev = self.device
@@ -170,21 +196,31 @@ class MonoTracker:
     def process_image(self, img, timestamp: float) -> FrameRecord:
         """``img``: (H, W) image, a tensor or an array (copied to the
         tracker's device)."""
-        if not torch.is_tensor(img):
-            img = torch.from_numpy(np.asarray(img, np.float32))
-        img = img.to(self.device, torch.float32)
         with stage("orb_extract"):
-            feats = extractor.extract_features(img, self.cfg.orb)
+            feats = extractor.extract_features(self._image(img),
+                                               self.cfg.orb)
         return self.process_features(self._undistort(feats), timestamp)
 
+    def _image(self, img) -> torch.Tensor:
+        """An image (tensor or array) as float32 on the tracker's device."""
+        if not torch.is_tensor(img):
+            img = torch.from_numpy(np.asarray(img, np.float32))
+        return img.to(self.device, torch.float32)
+
     def _undistort(self, feats: extractor.Features) -> extractor.Features:
-        """No-op for rectified inputs; radial-tangential undistortion of
-        keypoints is not ported yet (ROADMAP A11)."""
+        """Undistort keypoint coordinates for unrectified pinhole inputs
+        (reference Frame::UndistortKeyPoints): extraction ran on the raw
+        image; only the coordinates geometry uses are remapped. No-op
+        without a distortion (rectified stereo, KB8 fisheye)."""
         dist = self.cfg.distortion
         if not dist or not any(dist):
             return feats
-        raise NotImplementedError(
-            "keypoint undistortion is not ported yet (ROADMAP A11)")
+        dev = feats.uv.device
+        uv = cameras.undistort_points(
+            torch.tensor(self.cfg.cam_params[:4], dtype=torch.float32,
+                         device=dev),
+            torch.tensor(dist, dtype=torch.float32, device=dev), feats.uv)
+        return feats._replace(uv=uv)
 
     def process_features(self, feats: extractor.Features,
                          timestamp: float) -> FrameRecord:
@@ -729,7 +765,7 @@ class MonoTracker:
             else:
                 rel = lie.se3_compose(self.cur_pose,
                                       lie.se3_inverse(p.old_newest))
-                self.cur_pose = lie.se3_compose(rel, T_new)
+                self.cur_pose = keep_on_so3(lie.se3_compose(rel, T_new))
             p.old_newest = T_new
             return True
         return False

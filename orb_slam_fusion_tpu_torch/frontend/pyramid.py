@@ -20,12 +20,14 @@ bit the same:
   FMA chains summed pairwise plus a separately rounded tail.
 
 These rules were read off the reference by probing its summation order.
-The pyramids of the image sizes in ``VERIFIED_SIZES`` (120x160, 240x376
-and 480x752, every shape the port runs, among them) are pinned bit-exact
-by ``tests/test_torch_frontend.py``. Other sizes reach orders not
+The pyramids of the image sizes in ``VERIFIED_SIZES`` (120x160, 240x376,
+480x752 and TUM-VI's 512x512, every shape the port runs, and KITTI's
+375x1242 among them) are pinned bit-exact by
+``tests/test_torch_frontend.py``. Other sizes reach orders not
 reproduced yet (ROADMAP.md, C3): portrait images contract width first
-with both dot operands transposed, and some landscape sizes (240x320,
-375x1242, 480x480) reach another blocking regime at their deeper levels.
+with both dot operands transposed, and some landscape and square sizes
+(240x320, 256x256, 480x480) reach another blocking regime at their
+deeper levels.
 ``resize_bilinear`` raises for any step outside the verified pyramids
 rather than return other bits. The
 fused multiply-adds go through float64 (exact product, then two
@@ -143,9 +145,12 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
 
 def _dot_plan(kind: str, rows: int, k: int, n: int):
     """How the reference's CPU dot sums over the contracted axis for one
-    resize pass: ``("chain", block_starts)`` or ``("lanes", lanes, main)``.
-    ``kind`` "h" is the height pass (weights contracted on their rows),
-    "w" the width pass; ``rows`` x ``n`` is the pass's output."""
+    resize pass: ``("chain", block_starts)`` or ``("lanes", lanes, main,
+    block_starts)``. ``kind`` "h" is the height pass (weights contracted
+    on their rows), "w" the width pass; ``rows`` x ``n`` is the pass's
+    output. In the lanes plan each k-block of 1024 has its own lanes,
+    summed pairwise, and the blocks are added in order (read off a column
+    whose taps straddle k = 1024 at 375x1242's level 2)."""
     if kind == "h":
         if k <= 320:
             return ("chain", (0,))
@@ -154,7 +159,7 @@ def _dot_plan(kind: str, rows: int, k: int, n: int):
         return ("chain", tuple(range(0, k, kc)))
     if rows >= 51 and (n - 1) % 64 < 48:
         lanes = 4 if (n - 1) % 32 < 16 else 2
-        return ("lanes", lanes, k - k % lanes)
+        return ("lanes", lanes, k - k % lanes, tuple(range(0, k, 1024)))
     return ("chain", tuple(range(0, k, 512)))
 
 
@@ -169,7 +174,8 @@ def _taps(in_size: int, out_size: int, kind: str, rows: int,
     leaves an accumulator's bits as they were, and one onto +0 is the
     rounded product, so every accumulator runs over all T taps unmasked.
     For a chain, c counts k-blocks from the column's first one; for lanes,
-    c is the lane and c = lanes the remainder."""
+    c is the lane plus ``lanes`` times that block count (a column's taps
+    straddle at most one block edge), and c = 2 * lanes the remainder."""
     w = resize_weights(in_size, out_size)
     nz = [np.nonzero(w[:, j])[0] for j in range(out_size)]
     T = max(1, max(len(t) for t in nz))
@@ -184,8 +190,11 @@ def _taps(in_size: int, out_size: int, kind: str, rows: int,
         acc = block - block[0]
         n_acc = int(acc[ok].max()) + 1
     else:
-        acc = np.where(idx < plan[2], idx % plan[1], plan[1])
-        n_acc = plan[1] + 1
+        lanes = plan[1]
+        block = np.searchsorted(np.asarray(plan[3]), idx, side="right") - 1
+        acc = np.where(idx < plan[2], (block - block[0]) * lanes
+                       + idx % lanes, 2 * lanes)
+        n_acc = 2 * lanes + 1
     t, j = np.nonzero(ok)
     wt = np.zeros((T, n_acc, out_size))
     wt[t, acc[t, j], j] = w[idx[t, j], j]
@@ -213,11 +222,12 @@ def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
         for blk in a[1:]:
             out = out + blk
         return out
-    if plan[1] == 4:                   # the lanes, summed pairwise
-        main = (a[0] + a[1]) + (a[2] + a[3])
-    else:
-        main = a[0] + a[1]
-    return main + a[-1]
+    def lanes(b):                      # one block's lanes, pairwise
+        if plan[1] == 4:
+            return (a[b] + a[b + 1]) + (a[b + 2] + a[b + 3])
+        return a[b] + a[b + 1]
+
+    return (lanes(0) + lanes(plan[1])) + a[-1]
 
 
 # Image sizes whose 8-level, scale-1.2 pyramids are bit-exact against the
@@ -225,10 +235,10 @@ def _resize_pass(x: torch.Tensor, out_size: int, kind: str) -> torch.Tensor:
 # pinned by tests/test_torch_frontend.py. Other sizes, portrait ones among
 # them, reach dot orders not reproduced yet (ROADMAP C3).
 VERIFIED_SIZES = ((96, 128), (100, 200), (120, 160), (240, 376), (360, 640),
-                  (370, 1226), (376, 752), (376, 1241), (400, 640),
-                  (480, 640), (480, 752), (480, 848), (540, 960),
-                  (600, 800), (720, 1280), (768, 1024), (800, 848),
-                  (1080, 1920))
+                  (370, 1226), (375, 1242), (376, 752), (376, 1241),
+                  (400, 640), (480, 640), (480, 752), (480, 848),
+                  (512, 512), (540, 960), (600, 800), (720, 1280),
+                  (768, 1024), (800, 848), (1080, 1920))
 
 
 @functools.lru_cache(maxsize=1)

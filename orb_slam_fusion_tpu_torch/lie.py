@@ -107,6 +107,30 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     return v * factor[..., None]
 
 
+def so3_orthonormality_error(R: torch.Tensor) -> torch.Tensor:
+    """max |R^T R - I| over a batch of 3x3 matrices (0-d tensor)."""
+    I = torch.eye(3, dtype=R.dtype, device=R.device)
+    return torch.abs(R.transpose(-1, -2) @ R - I).amax()
+
+
+def mat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack([
+        torch.stack([ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz], -1),
+    ], dim=-2)
+
+
+def so3_normalize(R: torch.Tensor) -> torch.Tensor:
+    """Re-orthonormalize a rotation matrix through its unit quaternion."""
+    return mat_from_quat(quat_from_mat(R))
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Log map SO(3) -> R^3 via the quaternion route."""
     return quat_log(quat_from_mat(R))

@@ -104,8 +104,10 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     ``frames_since_kf``, ``frame_id``, ``cur_obs`` (or None), ``lost_since``,
     ``ref_feats`` (Features fields, or None), ``ref_timestamp``,
     ``traj_rel`` ([(timestamp, kf, (R, t))]) and ``trajectory``
-    ([(timestamp, (R, t), tracked, state string)]). A background local BA
-    in flight does not travel: drain it on the source side first.
+    ([(timestamp, (R, t), tracked, state string)]); a stereo session's
+    state also holds ``kf_uright`` (K, F), its per-keyframe right-image u
+    table. A background local BA in flight does not travel: drain it on
+    the source side first.
     """
     from ..engine.tracker import FrameRecord, TrackState
 
@@ -138,3 +140,5 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     tracker.trajectory = [FrameRecord(float(ts), se3_from_numpy(T, dev),
                                       int(n), str(s))
                           for ts, T, n, s in state["trajectory"]]
+    if state.get("kf_uright") is not None:
+        tracker.kf_uright = _to_torch("kf_uright", state["kf_uright"], dev)

@@ -1,7 +1,8 @@
-"""Synthetic worlds and sequences: the parts the monocular session uses.
+"""Synthetic worlds and sequences: the parts the visual sessions use.
 
 Counterpart of ``orb_slam_fusion_tpu/sim.py`` (``SyntheticWorld``,
 ``make_corridor_world``, ``world_from_trajectory``, ``render_frame``,
+``render_stereo_frame``, ``render_fisheye_stereo_frame``,
 ``render_image``, ``gt_positions``), for the port's tests and
 ``chip_smoke.py``, which run without JAX. Given the same arguments it
 returns the reference's arrays bit for bit, so both packages track the
@@ -15,7 +16,10 @@ op:
 
 * ``R @ x`` (``lie.se3_apply``'s einsum) is a chain of fused
   multiply-adds over the 3 terms in increasing index, then ``+ t``;
-* ``cameras.project`` is ``fx * x``, ``* (1/z)``, ``+ cx``, each rounded;
+* ``cameras.project`` is ``fx * x``, ``* (1/z)``, ``+ cx``, each rounded
+  (pinhole); the Kannala-Brandt projection runs the port's
+  ``cameras.kb8_project`` on the CPU, which rounds each step as XLA's
+  eager ops do and takes glibc's ``atan2f``;
 * ``lie.so3_exp`` takes XLA:CPU's ``sin``/``cos``, which are glibc's
   ``sinf``/``cosf`` (glibc 2.36: double-precision polynomials after a
   fast pi/2 reduction); ``_sincosf`` evaluates the same polynomials
@@ -32,12 +36,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import cameras, resolve_device
 from .frontend.extractor import Features
 from .map.convert import desc_to_torch
 
 f32 = np.float32
 PINHOLE = "pinhole"
+KANNALA_BRANDT8 = "kannala_brandt8"
 
 
 class SE3(NamedTuple):
@@ -92,9 +97,22 @@ def se3_inverse(pose: SE3) -> SE3:
     return SE3(Rt, -_matvec(Rt, pose.t))
 
 
-def project(cam_params, xyz: np.ndarray) -> np.ndarray:
-    """Pinhole projection of camera-frame points, rounded as the
-    reference's eager ``cameras.pinhole_project``."""
+def se3_compose(A: SE3, B: SE3) -> SE3:
+    """(A*B)(x) = A(B(x)), rounded as the reference's eager compose."""
+    return SE3(_matmul3(np.asarray(A.R, f32), np.asarray(B.R, f32)),
+               (_matvec(A.R, B.t) + np.asarray(A.t, f32)).astype(f32))
+
+
+def project(cam_params, xyz: np.ndarray, cam_model: str = PINHOLE
+            ) -> np.ndarray:
+    """Projection of camera-frame points, rounded as the reference's eager
+    ``cameras.project``."""
+    if cam_model == KANNALA_BRANDT8:
+        return cameras.kb8_project(
+            torch.from_numpy(np.asarray(cam_params, f32)),
+            torch.from_numpy(np.asarray(xyz, f32))).numpy()
+    if cam_model != PINHOLE:
+        raise ValueError(f"unknown camera model {cam_model!r}")
     fx, fy, cx, cy = (f32(v) for v in np.asarray(cam_params, f32)[:4])
     z = xyz[..., 2]
     zi = (f32(1.0) / np.where(np.abs(z) < f32(1e-9), f32(1e-9), z)
@@ -386,6 +404,7 @@ def render_frame_numpy(world: SyntheticWorld, frame: int, cam_params,
                        image_size: Tuple[int, int], n_features: int,
                        pixel_noise: float = 0.4, desc_bit_flips: int = 4,
                        dropout: float = 0.1, seed: int = 0,
+                       cam_model: str = PINHOLE,
                        pose_override: Optional[SE3] = None):
     """``render_frame``'s arrays on the host: a dict of the Features
     fields as numpy arrays (descriptors uint32)."""
@@ -393,7 +412,7 @@ def render_frame_numpy(world: SyntheticWorld, frame: int, cam_params,
     h, w = image_size
     pose = _frame_pose(world, frame, pose_override)
     pc = se3_apply(pose, world.points)
-    uv = project(cam_params, pc)
+    uv = project(cam_params, pc, cam_model)
     vis = (pc[:, 2] > 0.3) & (pc[:, 2] < 40.0) \
         & (uv[:, 0] >= 8) & (uv[:, 0] < w - 8) \
         & (uv[:, 1] >= 8) & (uv[:, 1] < h - 8)
@@ -444,17 +463,90 @@ def render_frame(world: SyntheticWorld, frame: int, cam_params,
                  image_size: Tuple[int, int], n_features: int,
                  pixel_noise: float = 0.4, desc_bit_flips: int = 4,
                  dropout: float = 0.1, seed: int = 0,
+                 cam_model: str = PINHOLE,
                  pose_override: Optional[SE3] = None, device=None
                  ) -> Features:
     """Observe the world from frame's GT pose -> fixed-capacity Features
     on ``device`` (CUDA unless named)."""
     dev = resolve_device(device)
-    a = render_frame_numpy(world, frame, cam_params, image_size, n_features,
-                           pixel_noise, desc_bit_flips, dropout, seed,
-                           pose_override)
-    return Features(**{k: (desc_to_torch(v, dev) if k == "desc"
-                           else torch.from_numpy(v).to(dev))
+    return features_on(render_frame_numpy(
+        world, frame, cam_params, image_size, n_features, pixel_noise,
+        desc_bit_flips, dropout, seed, cam_model, pose_override), dev)
+
+
+def features_on(a: dict, device) -> Features:
+    """``render_frame_numpy``'s arrays as Features on ``device``."""
+    return Features(**{k: (desc_to_torch(v, device) if k == "desc"
+                           else torch.from_numpy(v).to(device))
                        for k, v in a.items()})
+
+
+def stereo_right_pose(world: SyntheticWorld, frame: int,
+                      baseline: float) -> SE3:
+    """The right camera of a rectified pair, displaced by ``baseline``
+    along the left camera's x axis: T_rw = (I, [-b, 0, 0]) o T_lw."""
+    return SE3(world.poses.R[frame],
+               (world.poses.t[frame]
+                + np.array([-baseline, 0.0, 0.0], f32)).astype(f32))
+
+
+def render_stereo_frame_numpy(world: SyntheticWorld, frame: int, cam_params,
+                              image_size, n_features: int, baseline: float,
+                              seed: int = 0, **kw):
+    """``render_stereo_frame``'s arrays on the host: (left, right) dicts."""
+    fL = render_frame_numpy(world, frame, cam_params, image_size,
+                            n_features, seed=seed, **kw)
+    fR = render_frame_numpy(world, frame, cam_params, image_size,
+                            n_features, seed=seed + 1,
+                            pose_override=stereo_right_pose(world, frame,
+                                                            baseline), **kw)
+    return fL, fR
+
+
+def render_stereo_frame(world: SyntheticWorld, frame: int, cam_params,
+                        image_size, n_features: int, baseline: float,
+                        seed: int = 0, device=None, **kw):
+    """A rectified stereo pair of Features: the right camera displaced by
+    ``baseline`` along the left camera's x axis. Returns (featsL, featsR)."""
+    dev = resolve_device(device)
+    return tuple(features_on(a, dev) for a in render_stereo_frame_numpy(
+        world, frame, cam_params, image_size, n_features, baseline, seed,
+        **kw))
+
+
+def fisheye_right_pose(world: SyntheticWorld, frame: int, T_c1_c2) -> SE3:
+    """The second camera of a rig with extrinsics ``T_c1_c2`` (4x4)."""
+    T12 = np.asarray(T_c1_c2, f32)
+    R21 = np.ascontiguousarray(T12[:3, :3].T)
+    t21 = _matvec(-R21, T12[:3, 3])
+    return se3_compose(SE3(R21, t21), SE3(world.poses.R[frame],
+                                          world.poses.t[frame]))
+
+
+def render_fisheye_stereo_frame_numpy(world: SyntheticWorld, frame: int,
+                                      cam1, cam2, image_size,
+                                      n_features: int, T_c1_c2,
+                                      seed: int = 0, **kw):
+    """``render_fisheye_stereo_frame``'s arrays on the host."""
+    fL = render_frame_numpy(world, frame, cam1, image_size, n_features,
+                            seed=seed, cam_model=KANNALA_BRANDT8, **kw)
+    fR = render_frame_numpy(world, frame, cam2, image_size, n_features,
+                            seed=seed + 1, cam_model=KANNALA_BRANDT8,
+                            pose_override=fisheye_right_pose(world, frame,
+                                                             T_c1_c2), **kw)
+    return fL, fR
+
+
+def render_fisheye_stereo_frame(world: SyntheticWorld, frame: int, cam1,
+                                cam2, image_size, n_features: int, T_c1_c2,
+                                seed: int = 0, device=None, **kw):
+    """A non-rectified fisheye pair (two KB8 cameras related by the rig
+    extrinsics ``T_c1_c2``). Returns (featsL, featsR)."""
+    dev = resolve_device(device)
+    return tuple(features_on(a, dev)
+                 for a in render_fisheye_stereo_frame_numpy(
+                     world, frame, cam1, cam2, image_size, n_features,
+                     T_c1_c2, seed, **kw))
 
 
 def _landmark_textures(n_points: int, seed: int = 4242,
@@ -478,6 +570,7 @@ _TEX_CACHE: dict = {}
 
 def render_image(world: SyntheticWorld, frame: int, cam_params,
                  image_size: Tuple[int, int], seed: int = 0,
+                 cam_model: str = PINHOLE,
                  pose_override: Optional[SE3] = None, bg_noise: float = 3.0,
                  base_px: float = 18.0, max_points: int = 1500,
                  center_marker: bool = False) -> np.ndarray:
@@ -488,7 +581,7 @@ def render_image(world: SyntheticWorld, frame: int, cam_params,
     h, w = image_size
     pose = _frame_pose(world, frame, pose_override)
     pc = se3_apply(pose, world.points)
-    uv = project(cam_params, pc)
+    uv = project(cam_params, pc, cam_model)
     vis = (pc[:, 2] > 0.3) & (pc[:, 2] < 40.0) \
         & (uv[:, 0] >= 4) & (uv[:, 0] < w - 4) \
         & (uv[:, 1] >= 4) & (uv[:, 1] < h - 4)

@@ -12,9 +12,11 @@ The reference lays every landmark-axis intermediate out flat ((F, 18),
 TPU layout choice; here the blocks keep their natural (..., 6, 3) shapes
 and the reduced system is one (6K, 3M) x (3M, 6K) product. The costs and
 the solution are the reference's; the float summation order is not.
-Monocular factors only, so every factor has the 2-dof chi-square threshold
-(the reference's ``_factor_chi2_th`` raises it for stereo factors): the
-stereo residual and the matrix-free PCG step are not ported yet.
+A problem built with ``u_right``/``stereo_mask``/``bf`` carries the
+reference's stereo factor (EdgeStereoSE3ProjectXYZ): a third residual row
+u_R = u_L - bf/z on its stereo factors, held to the 3-dof chi-square
+threshold (``_factor_chi2_th``); a monocular problem keeps two rows. The
+matrix-free PCG step (global BA) is not ported yet (ROADMAP A13).
 ``ChunkedLM`` runs the same two-phase solve resumably, a few iterations
 per call, for the tracker's background local BA.
 """
@@ -26,7 +28,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from .. import cameras, lie
-from .robust import CHI2_2D, huber_rho, huber_weight
+from .robust import CHI2_2D, CHI2_3D, huber_rho, huber_weight
 
 
 class BAProblem(NamedTuple):
@@ -34,6 +36,9 @@ class BAProblem(NamedTuple):
 
     lm_factor_idx/lm_factor_valid (M, K): the factor row of each landmark
     in each window row (the window layout has at most one).
+    u_right (F,), stereo_mask (F,), bf (): the stereo extension (the
+    observed right-image u of factors with stereo_mask set, and the
+    baseline times fx); None for a monocular problem.
     """
 
     poses: lie.SE3
@@ -48,6 +53,9 @@ class BAProblem(NamedTuple):
     cam_params: torch.Tensor
     lm_factor_idx: torch.Tensor
     lm_factor_valid: torch.Tensor
+    u_right: torch.Tensor = None
+    stereo_mask: torch.Tensor = None
+    bf: torch.Tensor = None
 
 
 def inv3x3(A: torch.Tensor) -> torch.Tensor:
@@ -95,19 +103,28 @@ def window_landmark_groups(kf_idx: torch.Tensor, mp_idx: torch.Tensor,
 
 def make_window_problem(poses: lie.SE3, points, kf_idx, mp_idx, uv,
                         inv_sigma2, valid, fixed_pose, cam_params,
-                        window_size: int, fixed_point=None) -> BAProblem:
-    """BAProblem for the ``observation_triples`` window layout."""
+                        window_size: int, fixed_point=None, u_right=None,
+                        stereo_mask=None, bf=0.0) -> BAProblem:
+    """BAProblem for the ``observation_triples`` window layout; with
+    ``u_right`` and ``stereo_mask`` it carries stereo factors."""
     lm_idx, lm_valid = window_landmark_groups(
         kf_idx, mp_idx, valid, points.shape[0], window_size)
     if fixed_point is None:
         fixed_point = torch.zeros(points.shape[0], dtype=torch.bool,
                                   device=points.device)
+    stereo = {}
+    if u_right is not None:
+        stereo = dict(
+            u_right=u_right.to(torch.float32),
+            stereo_mask=stereo_mask.to(torch.bool),
+            bf=torch.tensor(float(bf), dtype=torch.float32,
+                            device=points.device))
     return BAProblem(
         poses=poses, points=points, kf_idx=kf_idx.to(torch.int32),
         mp_idx=mp_idx.to(torch.int32), uv=uv, inv_sigma2=inv_sigma2,
         valid=valid.to(torch.bool), fixed_pose=fixed_pose.to(torch.bool),
         fixed_point=fixed_point.to(torch.bool), cam_params=cam_params,
-        lm_factor_idx=lm_idx, lm_factor_valid=lm_valid)
+        lm_factor_idx=lm_idx, lm_factor_valid=lm_valid, **stereo)
 
 
 def _transform(poses: lie.SE3, points: torch.Tensor, prob: BAProblem):
@@ -117,21 +134,45 @@ def _transform(poses: lie.SE3, points: torch.Tensor, prob: BAProblem):
     return Rk, torch.matmul(Rk, Xw.unsqueeze(-1)).squeeze(-1) + poses.t[kf]
 
 
+def _stereo_row(pred: torch.Tensor, pc: torch.Tensor, prob: BAProblem):
+    """The right-image residual u_L - bf/z - u_R (0 on mono factors) and
+    z, clamped as the reference clamps it."""
+    z = torch.clamp(pc[..., 2], min=1e-6)
+    r3 = torch.where(prob.stereo_mask, pred[..., 0] - prob.bf / z
+                     - prob.u_right, torch.zeros_like(z))
+    return r3, z
+
+
 def _eval_residuals(poses: lie.SE3, points: torch.Tensor, prob: BAProblem,
                     cam_model: str):
-    """Residuals (F,2) (zero where not finite) and the finite mask."""
+    """Residuals (F,R) (zero where not finite) and the finite mask; R = 3
+    for a stereo problem, else 2."""
     _, pc = _transform(poses, points, prob)
-    r = cameras.project(cam_model, prob.cam_params, pc) - prob.uv
+    pred = cameras.project(cam_model, prob.cam_params, pc)
+    r = pred - prob.uv
+    if prob.stereo_mask is not None:
+        r = torch.cat([r, _stereo_row(pred, pc, prob)[0][..., None]], dim=-1)
     finite = (pc[..., 2] > 1e-4) & torch.isfinite(r).all(dim=-1)
     return torch.where(finite[..., None], r, torch.zeros_like(r)), finite
 
 
 def _eval_factors(poses: lie.SE3, points: torch.Tensor, prob: BAProblem,
                   cam_model: str):
-    """Residuals (F,2), J_pose (F,2,6), J_point (F,2,3), finite mask."""
+    """Residuals (F,R), J_pose (F,R,6), J_point (F,R,3), finite mask; the
+    stereo row's Jacobian is d(u)/d(pc) + [0, 0, bf/z^2]."""
     Rk, pc = _transform(poses, points, prob)
-    r = cameras.project(cam_model, prob.cam_params, pc) - prob.uv
+    pred = cameras.project(cam_model, prob.cam_params, pc)
+    r = pred - prob.uv
     Jproj = cameras.project_jac(cam_model, prob.cam_params, pc)
+    if prob.stereo_mask is not None:
+        r3, z = _stereo_row(pred, pc, prob)
+        r = torch.cat([r, r3[..., None]], dim=-1)
+        zero = torch.zeros_like(z)
+        dur = Jproj[:, 0, :] + torch.stack([zero, zero, prob.bf / (z * z)],
+                                           dim=-1)
+        dur = torch.where(prob.stereo_mask[:, None], dur,
+                          torch.zeros_like(dur))
+        Jproj = torch.cat([Jproj, dur[:, None, :]], dim=1)
     eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(
         pc.shape[:-1] + (3, 3))
     J_pose = Jproj @ torch.cat([eye, -lie.hat(pc)], dim=-1)
@@ -143,6 +184,20 @@ def _eval_factors(poses: lie.SE3, points: torch.Tensor, prob: BAProblem,
     return (torch.where(finite[..., None], r, z),
             torch.where(finite[..., None, None], J_pose, z),
             torch.where(finite[..., None, None], J_point, z), finite)
+
+
+def _factor_chi2_th(prob: BAProblem, chi2_th: float):
+    """Per-factor chi-square threshold: stereo factors are 3-dof (reference
+    7.815 against 5.991, optimizer.cc:118,151); a float for a monocular
+    problem."""
+    if prob.stereo_mask is None:
+        return chi2_th
+    ratio = CHI2_3D / CHI2_2D
+    return torch.where(prob.stereo_mask,
+                       torch.tensor(chi2_th * ratio, dtype=torch.float32,
+                                    device=prob.stereo_mask.device),
+                       torch.tensor(chi2_th, dtype=torch.float32,
+                                    device=prob.stereo_mask.device))
 
 
 def _robust_cost(r, inv_sigma2, active, chi2_th):
@@ -167,8 +222,8 @@ def _lm_step(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
     r, Jp, Jl, depth_ok = _eval_factors(poses, points, prob, cam_model)
     active = prob.valid & inlier & depth_ok
     chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
-    w_rob = (huber_weight(chi2, chi2_th) if use_robust
-             else torch.ones_like(chi2))
+    w_rob = (huber_weight(chi2, _factor_chi2_th(prob, chi2_th))
+             if use_robust else torch.ones_like(chi2))
     w = torch.where(active, w_rob * prob.inv_sigma2, torch.zeros_like(chi2))
 
     Jpw = Jp * w[:, None, None]
@@ -224,7 +279,7 @@ def lm_cost(poses, points, inlier, prob: BAProblem, cam_model: str,
     """Masked robust cost at a state (the LM accept-test objective)."""
     r, fin = _eval_residuals(poses, points, prob, cam_model)
     return _robust_cost(r, prob.inv_sigma2, prob.valid & inlier & fin,
-                        chi2_th)[0]
+                        _factor_chi2_th(prob, chi2_th))[0]
 
 
 def inlier_mask(poses, points, prob: BAProblem, cam_model: str,
@@ -232,7 +287,7 @@ def inlier_mask(poses, points, prob: BAProblem, cam_model: str,
     """chi2 inlier classification at a state."""
     r, fin = _eval_residuals(poses, points, prob, cam_model)
     chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
-    return (chi2 <= chi2_th) & fin & prob.valid
+    return (chi2 <= _factor_chi2_th(prob, chi2_th)) & fin & prob.valid
 
 
 def lm_chunk(poses, points, lam, cost0, inlier, prob: BAProblem,

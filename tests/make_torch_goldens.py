@@ -1,23 +1,41 @@
 #!/usr/bin/env python3
 """Write the golden runs ``chip_smoke.py`` holds the port's sessions to.
 
-    JAX_PLATFORMS=cpu python tests/make_torch_goldens.py
+    JAX_PLATFORMS=cpu python tests/make_torch_goldens.py [name ...]
 
-Runs the JAX package's ``MonoTracker`` (``loop_closing=False``) on the CPU
-over the two sessions ``chip_smoke.py`` drives, and writes, per session, a
-JSON file under ``tests/torch_goldens/``: the configuration, world and
-render arguments, and per frame the state, the inlier count, ``n_kf``,
-``n_mp`` and a SHA-256 of the frame's inputs (the feature arrays, or the
-image), then the tracked count, the ATE after init and the estimated
-trajectory (TUM rows). The port's own
-``sim.py`` regenerates the same inputs bit for bit, which the input hashes
-let a run on another machine check.
+Runs the JAX package's trackers (``loop_closing=False``) on the CPU over
+the sessions ``chip_smoke.py`` drives (all, or the named ones), and
+writes, per session, a JSON file under ``tests/torch_goldens/``: the
+configuration, world and render arguments, and per frame the state, the
+inlier count, ``n_kf``, ``n_mp`` and a SHA-256 of the frame's inputs (the
+feature arrays, the image, or both feature sets of a pair, with the
+RGB-D depths), then the tracked count, the ATE after init (with scale
+alignment for the monocular sessions, without for the metric ones, as
+their e2e tests measure it) and the estimated trajectory (TUM rows).
+The port's own ``sim.py`` regenerates the same inputs bit for bit,
+which the input hashes let a run on another machine check.
 
 * ``mono_session_480x752.json``: the tracker e2e sequence (corridor world,
   80 frames, seed 3) at ``SlamConfig``'s default widths (480x752, 1024
   features, 8192 map points, 256 keyframe slots, ``ba_window`` 8).
 * ``image_session_240x376.json``: the image e2e sequence (gentle world,
   50 rendered 240x376 images through ``process_image``).
+* ``stereo_session_480x752.json``: ``StereoTracker`` (baseline 0.11 m) on
+  the stereo e2e sequence (corridor world, 70 frames, seed 7) at
+  ``SlamConfig``'s default widths.
+* ``stereo_e2e_session_480x752.json``: the same at the stereo e2e test's
+  widths (512 features, 6144 map points), which the CPU tests hold the
+  port's free-running session to.
+* ``rgbd_session_480x752.json``, ``fisheye_mono_session_512x512.json``,
+  ``fisheye_stereo_session_512x512.json``: ``RgbdTracker``, the
+  Kannala-Brandt ``MonoTracker`` and ``FisheyeStereoTracker`` on the
+  sequences of ``test_rgbd_e2e.py`` and ``test_fisheye_e2e.py`` at those
+  tests' widths (512 features, 6144 map points).
+* ``fisheye_image_session_512x512.json``: the Kannala-Brandt
+  ``MonoTracker`` through ``process_image`` on the first frames of the
+  fisheye mono sequence, rendered as 512x512 images (no frame
+  initializes: the record is the two-view initialization's states and
+  match counts).
 
 Needs JAX. The settings are ``chip_smoke.py``'s own;
 ``tests/test_torch_goldens.py`` checks that the committed files still carry
@@ -42,8 +60,10 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from orb_slam_fusion_tpu import sim  # noqa: E402
+from orb_slam_fusion_tpu import cameras, lie, sim  # noqa: E402
 from orb_slam_fusion_tpu.engine import MonoTracker, SlamConfig  # noqa: E402
+from orb_slam_fusion_tpu.engine.stereo_tracker import (  # noqa: E402
+    FisheyeStereoTracker, RgbdTracker, StereoTracker)
 from orb_slam_fusion_tpu.frontend.extractor import OrbParams  # noqa: E402
 from orb_slam_fusion_tpu.io import ate_rmse  # noqa: E402
 
@@ -54,6 +74,28 @@ MONO = dict(config=dict(loop_closing=False), world=chip_smoke.SESSION_WORLD,
             render=chip_smoke.SESSION_RENDER)
 IMAGE = dict(config=json.loads(json.dumps(chip_smoke.IMAGE_CONFIG)),
              world=chip_smoke.IMAGE_WORLD)
+STEREO = dict(config=dict(loop_closing=False), world=chip_smoke.STEREO_WORLD,
+              render=chip_smoke.STEREO_RENDER,
+              baseline=chip_smoke.STEREO_BASELINE)
+# the same sequence at the e2e test's widths, for the CPU tests'
+# free-running comparison (tests/test_torch_stereo_session.py)
+STEREO_E2E = dict(STEREO, config=json.loads(json.dumps(chip_smoke.E2E_CONFIG)),
+                  render=dict(chip_smoke.STEREO_RENDER, n_features=512))
+RGBD = dict(config=json.loads(json.dumps(chip_smoke.E2E_CONFIG)),
+            world=chip_smoke.RGBD_WORLD, render=chip_smoke.RGBD_RENDER,
+            baseline=chip_smoke.RGBD_BASELINE,
+            depth_seed=chip_smoke.RGBD_DEPTH_SEED)
+FISHEYE_MONO = dict(config=json.loads(json.dumps(chip_smoke.FISHEYE_CONFIG)),
+                    world=chip_smoke.FISHEYE_MONO_WORLD,
+                    render=chip_smoke.FISHEYE_MONO_RENDER)
+FISHEYE_STEREO = dict(
+    config=json.loads(json.dumps(chip_smoke.FISHEYE_CONFIG)),
+    world=chip_smoke.FISHEYE_STEREO_WORLD,
+    render=chip_smoke.FISHEYE_STEREO_RENDER,
+    T_c1_c2=json.loads(json.dumps(chip_smoke.T_C1_C2)))
+FISHEYE_IMAGE = dict(config=FISHEYE_MONO["config"],
+                     world=chip_smoke.FISHEYE_MONO_WORLD,
+                     n_frames=chip_smoke.FISHEYE_IMAGE_FRAMES)
 
 
 def sha(*arrays) -> str:
@@ -65,14 +107,15 @@ def sha(*arrays) -> str:
     return h.hexdigest()
 
 
-def finish(tr, world, frames, extra):
+def finish(tr, world, frames, extra, with_scale=True):
     states = [f["state"] for f in frames]
     start = states.index("init-done") if "init-done" in states else None
     traj = tr.trajectory_tum()
     ate = None
     if start is not None:
         ate = float(ate_rmse(traj[start:, 1:4],
-                             sim.gt_positions(world)[start:len(traj)]))
+                             sim.gt_positions(world)[start:len(traj)],
+                             with_scale=with_scale))
     return dict(extra, frames=frames, init_frame=start,
                 trajectory_tum=[[float(v) for v in row] for row in traj],
                 tracked=sum(s in ("ok", "init-done") for s in states),
@@ -126,10 +169,143 @@ def image_session():
     return finish(tr, world, frames, IMAGE)
 
 
+def config_of(c):
+    """A reference SlamConfig from a JSON-shaped config dict."""
+    c = dict(c)
+    for k in ("cam_params", "image_size"):
+        if k in c:
+            c[k] = tuple(c[k])
+    if "n_features" in c:
+        c["orb"] = OrbParams(n_features=c.pop("n_features"))
+    return SlamConfig(**c)
+
+
+def feats_sha(*fs):
+    return sha(*(np.asarray(getattr(f, n)) for f in fs for n in f._fields))
+
+
+def stereo_session(spec=STEREO):
+    cfg = config_of(spec["config"])
+    world = sim.make_corridor_world(**spec["world"])
+    tr = StereoTracker(cfg, baseline=spec["baseline"])
+    cam = jnp.asarray(cfg.cam_params)
+    r = dict(spec["render"])
+    nf = r.pop("n_features")
+    frames = []
+    for k in range(spec["world"]["n_frames"]):
+        fL, fR = sim.render_stereo_frame(world, k, cam, cfg.image_size, nf,
+                                         spec["baseline"], **r)
+        rec = tr.process_stereo_features(fL, fR, float(world.timestamps[k]))
+        frames.append(record(tr, rec, feats_sha(fL, fR)))
+        print("stereo", k, frames[-1]["state"], frames[-1]["tracked"],
+              flush=True)
+    return finish(tr, world, frames, spec, with_scale=False)
+
+
+def rgbd_depth(world, k, feats, rng, cam):
+    """The RGB-D e2e test's per-feature depth: the nearest projected world
+    point's depth with 0.5% noise, -1 beyond 3 px."""
+    pose = lie.SE3(world.poses.R[k], world.poses.t[k])
+    pc = np.asarray(lie.se3_apply(pose, jnp.asarray(world.points)))
+    uvw = np.asarray(cameras.pinhole_project(cam, jnp.asarray(pc)))
+    fuv = np.asarray(feats.uv)
+    d2 = ((fuv[:, None, :] - uvw[None, :, :]) ** 2).sum(-1)
+    d2[:, pc[:, 2] < 0.1] = 1e12
+    nearest = d2.argmin(axis=1)
+    depth = pc[nearest, 2] * (1.0 + rng.randn(len(nearest)) * 0.005)
+    depth = np.where(d2[np.arange(len(nearest)), nearest] < 9.0, depth, -1.0)
+    return np.asarray(depth, np.float32)
+
+
+def rgbd_session():
+    cfg = config_of(RGBD["config"])
+    world = sim.make_corridor_world(**RGBD["world"])
+    tr = RgbdTracker(cfg, baseline=RGBD["baseline"])
+    cam = jnp.asarray(cfg.cam_params)
+    r = dict(RGBD["render"])
+    nf = r.pop("n_features")
+    rng = np.random.RandomState(RGBD["depth_seed"])
+    frames = []
+    for k in range(RGBD["world"]["n_frames"]):
+        f = sim.render_frame(world, k, cam, cfg.image_size, nf, **r)
+        depth = rgbd_depth(world, k, f, rng, cam)
+        rec = tr.process_rgbd_features(f, jnp.asarray(depth),
+                                       float(world.timestamps[k]))
+        frames.append(record(tr, rec, sha(*(np.asarray(getattr(f, n))
+                                            for n in f._fields), depth)))
+        print("rgbd", k, frames[-1]["state"], frames[-1]["tracked"],
+              flush=True)
+    return finish(tr, world, frames, RGBD, with_scale=False)
+
+
+def fisheye_mono_session():
+    cfg = config_of(FISHEYE_MONO["config"])
+    world = sim.make_corridor_world(**FISHEYE_MONO["world"])
+    tr = MonoTracker(cfg)
+    cam = jnp.asarray(cfg.cam_params)
+    r = dict(FISHEYE_MONO["render"])
+    nf = r.pop("n_features")
+    frames = []
+    for k in range(FISHEYE_MONO["world"]["n_frames"]):
+        f = sim.render_frame(world, k, cam, cfg.image_size, nf,
+                             cam_model=cameras.KANNALA_BRANDT8, **r)
+        rec = tr.process_features(f, float(world.timestamps[k]))
+        frames.append(record(tr, rec, feats_sha(f)))
+        print("fisheye mono", k, frames[-1]["state"], frames[-1]["tracked"],
+              flush=True)
+    return finish(tr, world, frames, FISHEYE_MONO)
+
+
+def fisheye_stereo_session():
+    cfg = config_of(FISHEYE_STEREO["config"])
+    world = sim.make_corridor_world(**FISHEYE_STEREO["world"])
+    T12 = np.asarray(FISHEYE_STEREO["T_c1_c2"])
+    tr = FisheyeStereoTracker(cfg, cfg.cam_params, T12)
+    r = dict(FISHEYE_STEREO["render"])
+    nf = r.pop("n_features")
+    frames = []
+    for k in range(FISHEYE_STEREO["world"]["n_frames"]):
+        fL, fR = sim.render_fisheye_stereo_frame(
+            world, k, cfg.cam_params, cfg.cam_params, cfg.image_size, nf,
+            T12, **r)
+        rec = tr.process_stereo_features(fL, fR, float(world.timestamps[k]))
+        frames.append(record(tr, rec, feats_sha(fL, fR)))
+        print("fisheye stereo", k, frames[-1]["state"],
+              frames[-1]["tracked"], flush=True)
+    return finish(tr, world, frames, FISHEYE_STEREO, with_scale=False)
+
+
+def fisheye_image_session():
+    cfg = config_of(FISHEYE_IMAGE["config"])
+    world = sim.make_corridor_world(**FISHEYE_IMAGE["world"])
+    tr = MonoTracker(cfg)
+    cam = jnp.asarray(cfg.cam_params)
+    frames = []
+    for k in range(FISHEYE_IMAGE["n_frames"]):
+        img = sim.render_image(world, k, cam, cfg.image_size,
+                               cam_model=cameras.KANNALA_BRANDT8)
+        rec = tr.process_image(jnp.asarray(img), float(world.timestamps[k]))
+        frames.append(record(tr, rec, sha(img)))
+        print("fisheye image", k, frames[-1]["state"],
+              frames[-1]["tracked"], flush=True)
+    return finish(tr, world, frames, FISHEYE_IMAGE)
+
+
+SESSIONS = {"mono_session_480x752.json": mono_session,
+            "image_session_240x376.json": image_session,
+            "stereo_session_480x752.json": stereo_session,
+            "stereo_e2e_session_480x752.json": (
+                lambda: stereo_session(STEREO_E2E)),
+            "rgbd_session_480x752.json": rgbd_session,
+            "fisheye_mono_session_512x512.json": fisheye_mono_session,
+            "fisheye_stereo_session_512x512.json": fisheye_stereo_session,
+            "fisheye_image_session_512x512.json": fisheye_image_session}
+
+
 def main():
     os.makedirs(OUT, exist_ok=True)
-    for name, fn in (("mono_session_480x752.json", mono_session),
-                     ("image_session_240x376.json", image_session)):
+    names = sys.argv[1:] or list(SESSIONS)
+    for name, fn in ((n, SESSIONS[n]) for n in names):
         t0 = time.perf_counter()
         g = fn()
         with open(os.path.join(OUT, name), "w") as fh:

@@ -173,6 +173,119 @@ def test_session_frames_launch_the_kernel(cuda):
             assert torch.equal(g, w)
 
 
+KB8 = (190.97847, 190.9733, 254.93170, 256.89742,
+       0.0034823894, 0.00077133023, -0.0000034, 0.00000069)
+T_C1_C2 = np.array([[1.0, 0.0, 0.0, 0.101], [0.0, 1.0, 0.0, 0.002],
+                    [0.0, 0.0, 1.0, 0.001], [0.0, 0.0, 0.0, 1.0]])
+
+
+@pytest.mark.parametrize("mode", ["stereo", "fisheye"])
+def test_stereo_session_frames_launch_the_kernel(cuda, mode):
+    """The first 10 frames of the stereo (EuRoC-like pinhole) and
+    fisheye-stereo (KB8, 512x512) e2e sequences on the card: every tracked
+    frame launches the kernel 3 times per fused step (twice that where the
+    step falls back to the reference keyframe, as the reference's does on
+    a fast start), and each launch agrees with the plain version on its
+    own inputs (the fisheye frames fill cells that pinhole frames leave
+    empty)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import (
+        FisheyeStereoTracker, StereoTracker)
+    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
+
+    kw = dict(orb=OrbParams(n_features=512), max_keyframes=64,
+              max_map_points=6144, ba_window=6, loop_closing=False)
+    render = dict(pixel_noise=0.3, desc_bit_flips=3, dropout=0.08)
+    if mode == "stereo":
+        cfg = SlamConfig(cam_params=(400.0, 400.0, 376.0, 240.0), **kw)
+        world = sim.make_corridor_world(n_frames=70, n_points=5000, seed=7)
+        tr = StereoTracker(cfg, baseline=0.11, device=cuda)
+
+        def frame(k):
+            return sim.render_stereo_frame(
+                world, k, cfg.cam_params, cfg.image_size, 512, 0.11,
+                seed=31, device=cuda, **render)
+    else:
+        cfg = SlamConfig(cam_model="kannala_brandt8", cam_params=KB8,
+                         image_size=(512, 512), **kw)
+        world = sim.make_corridor_world(n_frames=50, n_points=6000, seed=11)
+        tr = FisheyeStereoTracker(cfg, KB8, T_C1_C2, device=cuda)
+
+        def frame(k):
+            return sim.render_fisheye_stereo_frame(
+                world, k, KB8, KB8, cfg.image_size, 512, T_C1_C2, seed=17,
+                device=cuda, **render)
+    seen, launch = [], mm.masked_match_cuda
+
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
+                                                       kp_desc)))
+        return out
+
+    mm.masked_match_cuda = record
+    try:
+        for k in range(10):
+            before = len(seen)
+            fL, fR = frame(k)
+            rec = tr.process_stereo_features(fL, fR,
+                                             float(world.timestamps[k]))
+            n = len(seen) - before
+            if rec.state == "ok":
+                assert n in (3, 6), (k, n)
+    finally:
+        mm.masked_match_cuda = launch
+    assert tr.state.name == "OK" and seen
+    for got, want in seen:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_remap_bilinear_on_card_matches_cpu(cuda):
+    """The device remap (``frontend/rectify.py``) gives its CPU twin's
+    bits, taps outside the image included."""
+    from orb_slam_fusion_tpu_torch.frontend.rectify import (
+        remap_bilinear, remap_stereo_pair)
+    rng = np.random.RandomState(0)
+    h, w = 120, 160
+    imgs = [torch.from_numpy((rng.rand(h, w) * 255).astype(np.float32))
+            for _ in range(2)]
+    maps = [torch.from_numpy(np.stack(
+        [rng.uniform(-3, w + 2, (h, w)), rng.uniform(-3, h + 2, (h, w))],
+        -1).astype(np.float32)) for _ in range(2)]
+    want = remap_bilinear(imgs[0], maps[0])
+    got = remap_bilinear(imgs[0].to(cuda), maps[0].to(cuda))
+    assert torch.equal(got.cpu(), want)
+    pair = remap_stereo_pair(*(t.to(cuda) for t in imgs + maps))
+    for g, i, m in zip(pair, imgs, maps):
+        assert torch.equal(g.cpu(), remap_bilinear(i, m))
+
+
+def test_stereo_association_on_card_matches_cpu(cuda):
+    """``stereo_match`` and ``subpixel_refine`` on rendered images: the
+    same right-image u and masks on the card as on the CPU."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.frontend.extractor import (
+        OrbParams, extract_features)
+    from orb_slam_fusion_tpu_torch.frontend.stereo import (
+        stereo_match, subpixel_refine)
+    cam, size = (200.0, 200.0, 188.0, 120.0), (240, 376)
+    world = sim.make_corridor_world(n_frames=4, n_points=3000, seed=7)
+    imgs = [sim.render_image(world, 2, cam, size),
+            sim.render_image(world, 2, cam, size, pose_override=(
+                sim.stereo_right_pose(world, 2, 0.11)))]
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        im = [torch.from_numpy(i).to(dev) for i in imgs]
+        fL, fR = (extract_features(i, OrbParams(n_features=512)) for i in im)
+        ur, ok = stereo_match(fL, fR)
+        outs.append((ur, ok) + subpixel_refine(im[0], im[1], fL.uv, ur, ok))
+    assert int(outs[0][1].sum()) > 50
+    for a, b in zip(*outs):
+        assert torch.equal(a, b.cpu())
+
+
 def test_cuda_wrapper_rejects_cpu_tensors(cuda):
     uvr = torch.zeros(4, 4)
     with pytest.raises(ValueError):

@@ -82,6 +82,25 @@ def test_so3_and_hat():
                                   np.asarray(jlie.se3_identity((4,)).R))
 
 
+def test_so3_normalize():
+    """rtol 1e-5 (atol 1e-6) against the reference on rotations bent off
+    SO(3) by up to 1e-2, each pivot of the quaternion extraction reached
+    (angles near 0 and near pi); the result lies on SO(3) to 1e-6."""
+    rng = np.random.RandomState(2)
+    w = rng.randn(32, 3).astype(np.float32)
+    w[0] = [np.pi - 1e-3, 0, 0]
+    w[1] = [0, np.pi - 1e-3, 0]
+    w[2] = [0, 0, np.pi - 1e-3]
+    w[3] = [0, 0, 1e-7]
+    R = np.asarray(jlie.so3_exp(jnp.asarray(w)))
+    E = rng.randn(32, 3, 3).astype(np.float32)
+    bent = (R @ (np.eye(3, dtype=np.float32)
+                 + 1e-2 * rng.rand(32, 1, 1).astype(np.float32) * E))
+    Rt = tlie.so3_normalize(_t(bent))
+    _close(jlie.so3_normalize(jnp.asarray(bent)), Rt)
+    assert float(tlie.so3_orthonormality_error(Rt)) < 1e-6
+
+
 def test_pinhole_and_triangulation():
     """project / project_jac / unproject rtol 1e-5; triangulated points
     rtol 1e-4: three float32 Gauss-Newton 3x3 solves on noisy rays

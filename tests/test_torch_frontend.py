@@ -187,13 +187,13 @@ def test_portrait_resize_raises():
         tpyr.build_pyramid(img, 8, 1.2)
 
 
-@pytest.mark.parametrize("size", [(240, 320), (480, 480), (375, 1242)],
+@pytest.mark.parametrize("size", [(240, 320), (480, 480), (256, 256)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_unverified_resize_raises(size):
     """Landscape and square sizes whose deeper levels differ from the
-    reference's (240x320 from level 4, 480x480 from level 6, 375x1242 from
-    level 2; tests/torch_pyramid_probe.py) are not verified sizes, so the
-    resize raises instead of returning other bits (ROADMAP.md, C3)."""
+    reference's (240x320 and 256x256 from level 4, 480x480 from level 6;
+    tests/torch_pyramid_probe.py) are not verified sizes, so the resize
+    raises instead of returning other bits (ROADMAP.md, C3)."""
     assert size not in tpyr.VERIFIED_SIZES
     with pytest.raises(NotImplementedError, match="C3"):
         tpyr.build_pyramid(torch.zeros(size), 8, 1.2)

@@ -64,8 +64,92 @@ def test_image_golden_matches_chip_smoke():
         assert chip_smoke._sha(img) == g["frames"][k]["inputs_sha256"], k
 
 
+def _stereo_inputs(name, g, k):
+    """The port's inputs of frame k of a stereo-family golden, as the
+    arrays its hash covers."""
+    c = g["config"]
+    r = dict(g["render"])
+    nf = r.pop("n_features")
+    cam = tuple(c.get("cam_params", (458.654, 457.296, 367.215, 248.375)))
+    size = tuple(c.get("image_size", (480, 752)))
+    world = sim.make_corridor_world(**g["world"])
+    if name.startswith("stereo"):
+        pair = sim.render_stereo_frame_numpy(world, k, cam, size, nf,
+                                             g["baseline"], **r)
+        return [v for f in pair for v in f.values()]
+    if name.startswith("fisheye_stereo"):
+        pair = sim.render_fisheye_stereo_frame_numpy(
+            world, k, cam, cam, size, nf, np.asarray(g["T_c1_c2"]), **r)
+        return [v for f in pair for v in f.values()]
+    return list(sim.render_frame_numpy(
+        world, k, cam, size, nf, cam_model=c.get("cam_model", "pinhole"),
+        **r).values())
+
+
+STEREO_FAMILY = {
+    "stereo_session_480x752.json": dict(
+        world=chip_smoke.STEREO_WORLD, render=chip_smoke.STEREO_RENDER,
+        config={"loop_closing": False}),
+    "stereo_e2e_session_480x752.json": dict(
+        world=chip_smoke.STEREO_WORLD,
+        render=dict(chip_smoke.STEREO_RENDER, n_features=512),
+        config=chip_smoke.E2E_CONFIG),
+    "rgbd_session_480x752.json": dict(
+        world=chip_smoke.RGBD_WORLD, render=chip_smoke.RGBD_RENDER,
+        config=chip_smoke.E2E_CONFIG),
+    "fisheye_mono_session_512x512.json": dict(
+        world=chip_smoke.FISHEYE_MONO_WORLD,
+        render=chip_smoke.FISHEYE_MONO_RENDER,
+        config=chip_smoke.FISHEYE_CONFIG),
+    "fisheye_stereo_session_512x512.json": dict(
+        world=chip_smoke.FISHEYE_STEREO_WORLD,
+        render=chip_smoke.FISHEYE_STEREO_RENDER,
+        config=chip_smoke.FISHEYE_CONFIG),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STEREO_FAMILY))
+def test_stereo_family_golden_matches_chip_smoke(name):
+    """The stereo, RGB-D and fisheye goldens carry ``chip_smoke.py``'s
+    settings and the port's ``sim`` regenerates their inputs (the RGB-D
+    hash also covers the per-feature depths, which the session phase
+    checks on the card)."""
+    g = _load(name)
+    want = STEREO_FAMILY[name]
+    assert g["world"] == want["world"]
+    assert g["render"] == want["render"]
+    assert g["config"] == json.loads(json.dumps(want["config"]))
+    assert len(g["frames"]) == g["world"]["n_frames"]
+    assert g["tracked"] > 0.8 * g["world"]["n_frames"]
+    if name.startswith("rgbd"):
+        return
+    for k in (0, g["world"]["n_frames"] - 1):
+        assert chip_smoke._sha(*_stereo_inputs(name, g, k)) == g["frames"][
+            k]["inputs_sha256"], k
+
+
+def test_fisheye_image_golden_matches_chip_smoke():
+    """The KB8 image golden carries ``chip_smoke.py``'s settings and
+    frame count, and the port's ``sim`` renders its 512x512 images; the
+    JAX package initializes on none of those frames, which the card's
+    sub-phase is held to."""
+    g = _load("fisheye_image_session_512x512.json")
+    assert g["config"] == json.loads(json.dumps(chip_smoke.FISHEYE_CONFIG))
+    assert g["world"] == chip_smoke.FISHEYE_MONO_WORLD
+    assert g["n_frames"] == len(g["frames"]) == chip_smoke.FISHEYE_IMAGE_FRAMES
+    assert g["init_frame"] is None and g["tracked"] == 0
+    assert all(f["state"].startswith("init-") for f in g["frames"])
+    cfg = chip_smoke._config(chip_smoke.FISHEYE_CONFIG)
+    world = sim.make_corridor_world(**g["world"])
+    for k in (0, g["n_frames"] - 1):
+        img = sim.render_image(world, k, cfg.cam_params, cfg.image_size,
+                               cam_model=cfg.cam_model)
+        assert chip_smoke._sha(img) == g["frames"][k]["inputs_sha256"], k
+
+
 @pytest.mark.parametrize("name", ["mono_session_480x752.json",
-                                  "image_session_240x376.json"])
+                                  "image_session_240x376.json"]
+                         + sorted(STEREO_FAMILY))
 def test_golden_records_are_complete(name):
     g = _load(name)
     keys = {"state", "tracked", "n_kf", "n_mp", "inputs_sha256"}

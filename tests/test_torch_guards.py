@@ -102,3 +102,30 @@ def test_entry_points_refuse_cpu_without_device(monkeypatch):
     assert make_empty_map(4, 8, 4, device="cpu").mp_pos.device.type == "cpu"
     tr = MonoTracker(SlamConfig(loop_closing=False), device="cpu")
     assert tr.map.mp_pos.device.type == "cpu"
+
+
+def test_stereo_entry_points_refuse_cpu_without_device(monkeypatch):
+    """The stereo-family sessions and renderers: CUDA unless told
+    otherwise, as the monocular ones."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import (
+        FisheyeStereoTracker, RgbdTracker, StereoTracker)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SlamConfig(loop_closing=False)
+    world = sim.make_corridor_world(4, 50)
+    calls = [
+        lambda: StereoTracker(cfg, 0.11),
+        lambda: RgbdTracker(cfg, 0.08),
+        lambda: FisheyeStereoTracker(cfg, cfg.cam_params, np.eye(4)),
+        lambda: sim.render_stereo_frame(world, 0, cfg.cam_params, (480, 752),
+                                        16, 0.11),
+        lambda: sim.render_fisheye_stereo_frame(
+            world, 0, (190.0, 190.0, 256.0, 256.0, 0.0, 0.0, 0.0, 0.0),
+            (190.0, 190.0, 256.0, 256.0, 0.0, 0.0, 0.0, 0.0), (512, 512),
+            16, np.eye(4)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tr = StereoTracker(cfg, 0.11, device="cpu")
+    assert tr.kf_uright.device.type == "cpu"

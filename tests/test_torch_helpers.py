@@ -202,4 +202,6 @@ def jax_tracker_state(tr):
         ref_timestamp=tr.ref_timestamp,
         traj_rel=[(ts, kf, _pose_np(T)) for ts, kf, T in tr._traj_rel],
         trajectory=[(r.timestamp, _pose_np(r.pose), r.tracked, r.state)
-                    for r in tr.trajectory])
+                    for r in tr.trajectory],
+        kf_uright=(np.asarray(tr.kf_uright) if hasattr(tr, "kf_uright")
+                   else None))

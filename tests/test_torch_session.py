@@ -169,6 +169,17 @@ def test_constructor_refuses_unported_modes():
     with pytest.raises(NotImplementedError, match="A15"):
         MonoTracker(SlamConfig(loop_closing=False, mesh_devices=2),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        MonoTracker(SlamConfig(loop_closing=False, distortion=(0.1, 0, 0, 0)),
-                    device="cpu")._undistort(None)
+    # A11 is ported: a radial-tangential distortion undistorts keypoints
+    # (held to the reference in tests/test_torch_cameras_kb8.py); only an
+    # unknown camera model is refused
+    tr = MonoTracker(SlamConfig(loop_closing=False,
+                                distortion=(0.1, 0, 0, 0)), device="cpu")
+    uv = torch.tensor([[600.0, 400.0]])
+    f = convert.features_from_numpy(dict(
+        uv=uv.numpy(), response=np.ones(1, np.float32),
+        octave=np.zeros(1, np.int32), angle=np.zeros(1, np.float32),
+        desc=np.zeros((1, 8), np.uint32), valid=np.ones(1, bool)), "cpu")
+    assert not torch.equal(tr._undistort(f).uv, uv)
+    with pytest.raises(ValueError, match="camera model"):
+        MonoTracker(SlamConfig(loop_closing=False, cam_model="equirect"),
+                    device="cpu")
