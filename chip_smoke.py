@@ -98,7 +98,27 @@ Phases, each timed:
                must equal the golden's (no frame initializes, in either
                package) and the last frame's features must be
                bit-identical on the card and the host CPU;
- 12. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
+ 12. stereo_vio_session - ``StereoVioTracker(SlamConfig(loop_closing=
+               False), 0.11, make_calib())`` at the default widths on the
+               stereo-inertial e2e sequence (``make_vio_sequence``, 160
+               frames, seed 4; features rendered as
+               ``test_stereo_vio_e2e.py`` renders them, 1024 of them)
+               against its golden (``stereo_vio_session_480x752.json``):
+               every frame's state and the tracked count equal to the
+               golden's, IMU init on its keyframe +-1 and the same final
+               stage, keyframes within 3 and map points within 5%, metric
+               ATE under 0.1 m and within 20 mm of the golden's; at least 3
+               kernel launches on every tracked frame; the C6 guard's
+               firings counted; a plain and a keyframe frame after IMU init
+               profiled; one pose-inertial solve, one windowed and the
+               VIBA1 full VI-BA and one ``inertial_init`` timed alone; the
+               last frame's three masked-match calls checked and timed;
+ 13. vio_staged_session - ``VioTracker`` on ``test_staged_imu_init.py``'s
+               sequence and widths (180 frames at 10 fps, 512 features):
+               the states and tracked count as the golden's, IMU stages 1,
+               2 and 3 on the golden's keyframes +-1, metric ATE of the
+               second half under 0.2 m and within 20 mm of the golden's;
+ 14. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
                the ``{"ok": true, ...}`` line last.
 
 Each path's kernel launches are counted from 0 just before it runs and
@@ -533,6 +553,40 @@ FISHEYE_MONO_RENDER = dict(n_features=512, pixel_noise=0.3,
 FISHEYE_STEREO_WORLD = dict(n_frames=50, n_points=6000, seed=11)
 FISHEYE_STEREO_RENDER = dict(n_features=512, pixel_noise=0.3,
                              desc_bit_flips=3, dropout=0.08, seed=17)
+
+
+# the inertial sessions (tests/make_torch_goldens.py writes their goldens
+# from these values). stereo_vio_session: StereoVioTracker at SlamConfig's
+# default widths on the stereo-inertial e2e sequence, rendered as
+# tests/test_stereo_vio_e2e.py renders it (render_frame's defaults, seeds
+# 51 and 52, the right camera 0.11 m along x); vio_staged_session:
+# VioTracker at tests/test_staged_imu_init.py's widths and sequence (18 s at
+# 10 fps, so IMU init, VIBA1 and VIBA2 all fire).
+VIO_SEQ = dict(n_frames=160, seed=4, gyro_noise=1.7e-4, acc_noise=2e-3,
+               gyro_bias=0.002, acc_bias=0.02)
+VIO_RENDER = dict(n_features=1024, seed=51)
+VIO_BASELINE = 0.11
+# the same session at tests/test_stereo_vio_e2e.py's widths, for the CPU
+# tests' free-running comparison
+VIO_E2E_CONFIG = dict(cam_params=(400.0, 400.0, 376.0, 240.0),
+                      image_size=(480, 752), n_features=512,
+                      max_keyframes=96, max_map_points=8192, ba_window=6,
+                      loop_closing=False)
+VIO_E2E_SEQ = dict(VIO_SEQ, n_frames=80)
+STAGED_SEQ = dict(n_frames=180, fps=10.0, seed=4, gyro_noise=1.7e-4,
+                  acc_noise=2e-3, gyro_bias=0.005, acc_bias=0.04)
+STAGED_CONFIG = dict(cam_params=(400.0, 400.0, 376.0, 240.0),
+                     image_size=(480, 752), n_features=512,
+                     max_keyframes=128, max_map_points=6144, ba_window=6,
+                     loop_closing=False)
+STAGED_RENDER = dict(n_features=512, pixel_noise=0.3, desc_bit_flips=3,
+                     dropout=0.08, seed=21)
+# the inertial sessions' gates against their goldens: IMU stages on the
+# golden's keyframe +-1, keyframes within 3, map points within 5%, metric
+# ATE within 20 mm of the golden's (and under the e2e tests' own gates)
+VIO_STAGE_KF_TOL = 1
+VIO_KF_TOL = 3
+VIO_ATE_TOL_M = 0.02
 
 
 def _sha(*arrays):
@@ -1078,6 +1132,282 @@ def run_fisheye_sessions(dev):
     return outs
 
 
+def _imu_of(seq, k):
+    """Frame k's IMU samples (none before the first frame)."""
+    import numpy as np
+    if k == 0:
+        return (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+                np.zeros(0))
+    return seq.frame_imu[k - 1]
+
+
+class _SolverCalls:
+    """Wraps the inertial tracker's solver entry points for a run: counts
+    the C6 guard's re-orthonormalizations and keeps the arguments of the
+    calls to time afterwards: the last per-frame pose solve, windowed
+    VI-BA, full VI-BA (in the stereo session, VIBA1's) and
+    inertial_init."""
+
+    def __init__(self, tracker):
+        import orb_slam_fusion_tpu_torch.engine.tracker as trk
+        import orb_slam_fusion_tpu_torch.engine.vio_tracker as vt
+        self.mods, self.saved, self.calls = (trk, vt), [], {}
+        self.so3_fixes = 0
+        self.tracker = tracker
+        keep = trk.keep_on_so3
+
+        def count_keep(T):
+            out = keep(T)
+            self.so3_fixes += out is not T
+            return out
+        self._patch(trk, "keep_on_so3", count_keep)
+        for name in ("pose_inertial_marginalized", "visual_inertial_ba",
+                     "inertial_init"):
+            self._patch(vt, name, self._recorder(name, getattr(vt, name)))
+
+    def _patch(self, mod, name, fn):
+        self.saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def _recorder(self, name, fn):
+        cfg = self.tracker.cfg
+
+        def call(*args, **kw):
+            key = name
+            if name == "visual_inertial_ba":
+                W = args[0].poses.t.shape[0]
+                key = ("vi_ba_window" if W == cfg.ba_window
+                       + cfg.ba_fixed_ring else "vi_ba_full")
+            self.calls[key] = (fn, args, kw)     # the last call of each
+            return fn(*args, **kw)
+        return call
+
+    def close(self):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+
+
+def time_solver_calls(calls):
+    """Each recorded inertial solver call alone on the card: the host's
+    wall ms of one synchronized call, then one call under the profiler
+    (device-busy ms, kernel launches). These solvers are host-bound, so
+    CUDA events around a call would time the host's launches, not the
+    device."""
+    import torch
+    out = {}
+    for key in ("pose_inertial_marginalized", "vi_ba_window", "vi_ba_full",
+                "inertial_init"):
+        if key not in calls:
+            raise RuntimeError(f"stereo_vio_session made no {key} call")
+        fn, args, kw = calls[key]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = (args[0].poses.t.shape[0] if key.startswith("vi_ba")
+                else args[0].t.shape[0] if key == "inertial_init" else 1)
+        prof = profile_stages({f"solver {key}": lambda: fn(*args, **kw)},
+                              warm=False, cpu_ops=False)[f"solver {key}"]
+        out[key] = dict(wall_ms=wall, keyframe_rows=rows,
+                        device_busy_ms=prof["device_busy_ms"],
+                        kernels=prof["kernels"])
+    print("vio_solvers " + json.dumps(out), flush=True)
+    return out
+
+
+def _vio_stage_keyframes(rows):
+    """{stage: n_kf on the frame the stage was first reached}."""
+    out = {}
+    for r in rows:
+        out.setdefault(r["imu_stage"], r["n_kf"])
+    return {s: n for s, n in out.items() if s > 0}
+
+
+def _vio_gates(label, out, golden, states, rows, ate_gate):
+    """The inertial sessions' gates against their golden."""
+    odd = [k for k, (s, g) in enumerate(zip(states, golden["frames"]))
+           if s != g["state"]]
+    if odd:
+        raise RuntimeError(f"{label} frames {odd} have another state than "
+                           f"the golden's")
+    if out["tracked"] != golden["tracked"]:
+        raise RuntimeError(f"{label} tracked {out['tracked']}, the golden "
+                           f"{golden['tracked']}")
+    got = _vio_stage_keyframes(rows)
+    want = _vio_stage_keyframes(golden["frames"])
+    out["imu_stage_keyframes"] = got
+    out["golden_imu_stage_keyframes"] = want
+    if sorted(got) != sorted(want) or any(
+            abs(got[s] - want[s]) > VIO_STAGE_KF_TOL for s in want):
+        raise RuntimeError(f"{label}: IMU stages on keyframes {got}, the "
+                           f"golden's {want}")
+    if abs(out["n_kf"] - golden["n_kf"]) > VIO_KF_TOL:
+        raise RuntimeError(f"{label} ends with {out['n_kf']} keyframes, the "
+                           f"golden {golden['n_kf']}")
+    if abs(out["n_mp"] - golden["n_mp"]) > SESSION_MP_RTOL * golden["n_mp"]:
+        raise RuntimeError(f"{label} ends with {out['n_mp']} map points, the "
+                           f"golden {golden['n_mp']}")
+    ate, gate = out["metric_ate_m"], out["golden_metric_ate_m"]
+    if not (ate < ate_gate and abs(ate - gate) < VIO_ATE_TOL_M):
+        raise RuntimeError(f"{label} metric ATE {ate} m (gate {ate_gate} m, "
+                           f"the golden's {gate} m)")
+    from orb_slam_fusion_tpu_torch.engine.step import (
+        MATCH_LAUNCHES_PER_FRAME)
+    if out["launches_tracked"] < MATCH_LAUNCHES_PER_FRAME * out["ok_frames"]:
+        raise RuntimeError(f"{label}: {out['launches_tracked']} masked-match "
+                           f"launches over {out['ok_frames']} tracked frames")
+
+
+def _drive_vio(label, tracker, seq, make, step, golden, ate_from):
+    """Drive an inertial session over the golden's frames (launch counts
+    from 0, as ``_drive``), with the IMU stage and bias of every frame
+    beside the golden's. Returns (summary, states, per-frame rows, the
+    solver-call recorder, the tracker's copy before the last frame)."""
+    import copy
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.io import ate_rmse
+
+    rows, snap = [], {}
+    last = len(golden["frames"]) - 1
+
+    def make_(k):
+        if k == last:                    # before the frame's timing
+            snap["tracker"] = copy.deepcopy(tracker)
+        return make(k)
+
+    def step_(inputs, ts):
+        rec = step(inputs, ts)
+        b = [float(v) for v in torch.cat([tracker.bias.gyro,
+                                          tracker.bias.acc]).cpu()]
+        g = golden["frames"][len(rows)]
+        rows.append(dict(imu_stage=int(tracker._imu_stage),
+                         n_kf=int(tracker.map.n_kf)))
+        print(f"{label} imu " + json.dumps(dict(
+            frame=len(rows) - 1, stage=rows[-1]["imu_stage"], bias=b,
+            golden=[g["imu_stage"], g["bias"]])), flush=True)
+        return rec
+
+    rec = _SolverCalls(tracker)
+    try:
+        out, states, start, _ = _drive(label, tracker, seq.world, step_,
+                                       make_, golden, with_scale=False)
+    finally:
+        rec.close()
+    traj = tracker.trajectory_tum()
+    gt = sim.gt_positions(seq.world)
+    out["metric_ate_m"] = float(ate_rmse(traj[ate_from:, 1:4],
+                                         gt[ate_from:len(traj)],
+                                         with_scale=False))
+    gtraj = np.asarray(golden["trajectory_tum"])
+    out["golden_metric_ate_m"] = float(ate_rmse(
+        gtraj[ate_from:, 1:4], gt[ate_from:len(gtraj)], with_scale=False))
+    out["so3_guard_fired"] = rec.so3_fixes
+    out["final_imu_stage"] = int(tracker._imu_stage)
+    return out, states, rows, rec, snap["tracker"]
+
+
+def run_stereo_vio_session(dev):
+    """StereoVioTracker at SlamConfig's default widths on the stereo-
+    inertial e2e sequence against its golden (phase stereo_vio_session)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig, StereoVioTracker
+    from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
+
+    golden = _golden("stereo_vio_session_480x752.json")
+    cfg = SlamConfig(loop_closing=False)
+    seq = sim.make_vio_sequence(**VIO_SEQ)
+    r = dict(VIO_RENDER)
+    nf = r.pop("n_features")
+    tracker = StereoVioTracker(cfg, VIO_BASELINE, make_calib(device=dev),
+                               device=dev)
+
+    def make(k):
+        pair = sim.render_stereo_frame_numpy(
+            seq.world, k, cfg.cam_params, cfg.image_size, nf, VIO_BASELINE,
+            **r)
+        imu = _imu_of(seq, k)
+        return ((tuple(sim.features_on(a, dev) for a in pair), imu),
+                float(seq.world.timestamps[k]),
+                _sha(*(v for a in pair for v in a.values())) + _sha(*imu))
+
+    def step(inputs, ts):
+        return tracker.process_stereo_imu(*inputs[0], ts, *inputs[1])
+
+    out, states, rows, rec, before_last = _drive_vio(
+        "stereo_vio_session", tracker, seq, make, step, golden, ate_from=0)
+    print("stereo_vio_session: inlier rows first part from the golden's "
+          f"at frame {out['first_frame_differing_from_golden']}; the C6 "
+          f"rotation guard fired {out['so3_guard_fired']} times",
+          flush=True)
+    _vio_gates("stereo_vio_session", out, golden, states, rows, 0.1)
+    if out["final_imu_stage"] != golden["frames"][-1]["imu_stage"]:
+        raise RuntimeError("stereo_vio_session ends in another IMU stage "
+                           "than the golden")
+    print("stereo_vio_session gates passed " + json.dumps(
+        {k: out[k] for k in ("tracked", "metric_ate_m",
+                             "golden_metric_ate_m", "imu_stage_keyframes",
+                             "golden_imu_stage_keyframes", "n_kf", "n_mp",
+                             "final_imu_stage", "so3_guard_fired")}),
+          flush=True)
+    last = make(len(golden["frames"]) - 1)
+    # a plain frame and a keyframe frame after IMU init, each re-run from
+    # the state before the last frame
+    profile_session_frames(
+        before_last, last, "stereo_vio_session",
+        lambda tr, inputs, ts: tr.process_stereo_imu(*inputs[0], ts,
+                                                     *inputs[1]),
+        cpu_ops=False)
+    out["solver_calls"] = time_solver_calls(rec.calls)
+    out["match_calls"] = _session_calls("stereo_vio_session", tracker,
+                                        last[0][0][0])
+    return out
+
+
+def run_vio_staged_session(dev):
+    """VioTracker on test_staged_imu_init.py's sequence: IMU init, VIBA1
+    and VIBA2 against the golden (phase vio_staged_session)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import VioTracker
+    from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
+
+    golden = _golden("vio_staged_session_480x752.json")
+    cfg = _config(STAGED_CONFIG)
+    seq = sim.make_vio_sequence(**STAGED_SEQ)
+    r = dict(STAGED_RENDER)
+    nf = r.pop("n_features")
+    tracker = VioTracker(cfg, make_calib(device=dev), device=dev)
+
+    def make(k):
+        a = sim.render_frame_numpy(seq.world, k, cfg.cam_params,
+                                   cfg.image_size, nf, **r)
+        imu = _imu_of(seq, k)
+        return ((sim.features_on(a, dev), imu),
+                float(seq.world.timestamps[k]),
+                _sha(*a.values()) + _sha(*imu))
+
+    def step(inputs, ts):
+        return tracker.process_frame_imu(inputs[0], ts, *inputs[1])
+
+    # test_staged_imu_init.py's ATE: the second half, metric
+    out, states, rows, rec, _ = _drive_vio(
+        "vio_staged_session", tracker, seq, make, step, golden,
+        ate_from=STAGED_SEQ["n_frames"] // 2)
+    _vio_gates("vio_staged_session", out, golden, states, rows, 0.2)
+    if sorted(out["imu_stage_keyframes"]) != [1, 2, 3]:
+        raise RuntimeError("vio_staged_session: the IMU stages did not all "
+                           "fire")
+    print("vio_staged_session gates passed " + json.dumps(
+        {k: out[k] for k in ("tracked", "metric_ate_m",
+                             "golden_metric_ate_m", "imu_stage_keyframes",
+                             "golden_imu_stage_keyframes", "n_kf", "n_mp",
+                             "final_imu_stage", "so3_guard_fired")}),
+          flush=True)
+    return out
+
+
 def _euroc_rectification():
     """Maps and rectified intrinsics of the EuRoC rig (host float64)."""
     import numpy as np
@@ -1168,7 +1498,7 @@ def run_stereo_images(dev):
 
 def profile_session_frames(tracker, frame, label="session",
                            step=lambda tr, feats, ts: tr.process_features(
-                               feats, ts)):
+                               feats, ts), cpu_ops=True):
     """Device-busy time and launches of one session frame of each kind:
     a tracked frame that inserts no keyframe, and one that does (forced by
     the keyframe interval), each run on its own copy of ``tracker``
@@ -1192,19 +1522,26 @@ def profile_session_frames(tracker, frame, label="session",
             f"{label} keyframe frame": copies(True)}
     profile_stages({name: (lambda name=name: step(runs[name].pop(), feats,
                                                   ts))
-                    for name in runs})
+                    for name in runs}, cpu_ops=cpu_ops)
 
 
-def profile_stages(stages):
-    """Per stage, one run under torch.profiler: wall ms, device-busy ms
-    (sum of kernel times), kernel launches and the top kernels."""
+def profile_stages(stages, warm=True, cpu_ops=True):
+    """Per stage, one run under torch.profiler (after a warm-up run unless
+    ``warm`` is False): wall ms, device-busy ms (sum of kernel times),
+    kernel launches and the top kernels (by PyTorch op, or by kernel name
+    where ``cpu_ops`` is False: the host-bound inertial solves launch tens
+    of thousands of kernels, and tracing their ops too costs the script
+    minutes). Returns {stage: readings}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    out = {}
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops
+                                      else [])
     for name, fn in stages.items():
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -1213,12 +1550,13 @@ def profile_stages(stages):
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.device_time for e in kern) / 1e3
         top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
-        print("profile " + json.dumps({
-            "stage": name, "wall_ms": wall,
-            "device_busy_ms": busy if kern else "not measured",
-            "kernels": len(kern),
-            "top": [[e.key[:60], e.count, e.device_time_total / 1e3]
-                    for e in top[:6]]}), flush=True)
+        out[name] = {"stage": name, "wall_ms": wall,
+                     "device_busy_ms": busy if kern else "not measured",
+                     "kernels": len(kern),
+                     "top": [[e.key[:60], e.count, e.device_time_total / 1e3]
+                             for e in top[:6]]}
+        print("profile " + json.dumps(out[name]), flush=True)
+    return out
 
 
 def main():
@@ -1306,12 +1644,21 @@ def main():
     _phase("fisheye_sessions", t0)
 
     t0 = time.perf_counter()
+    stereo_vio = run_stereo_vio_session(dev)
+    _phase("stereo_vio_session", t0)
+
+    t0 = time.perf_counter()
+    staged = run_vio_staged_session(dev)
+    _phase("vio_staged_session", t0)
+
+    t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
              stages.items()}
     print("stage ms (mean over the 16-frame run; mapping and local_ba per "
           "keyframe event): " + json.dumps(table), flush=True)
     print("stage ms (all): " + json.dumps(stages), flush=True)
-    report["launches"] = session["launches"]
+    # this slice's main path is the stereo-inertial session
+    report["launches"] = stereo_vio["launches"]
     report["launches_by_path"] = {
         "bench_frames": launches["masked_match"],
         "session": session["launches"],
@@ -1321,14 +1668,19 @@ def main():
         "rgbd_session": rgbd["launches"],
         "fisheye_mono": fisheye["fisheye_mono"]["launches"],
         "fisheye_stereo": fisheye["fisheye_stereo"]["launches"],
-        "fisheye_images": fisheye["fisheye_images"]["launches"]}
+        "fisheye_images": fisheye["fisheye_images"]["launches"],
+        "stereo_vio_session": stereo_vio["launches"],
+        "vio_staged_session": staged["launches"]}
     report["tracked_frames_by_path"] = {
         "session": session["ok_frames"], "stereo_session":
         stereo["ok_frames"], "rgbd_session": rgbd["ok_frames"],
         "fisheye_mono": fisheye["fisheye_mono"]["ok_frames"],
-        "fisheye_stereo": fisheye["fisheye_stereo"]["ok_frames"]}
+        "fisheye_stereo": fisheye["fisheye_stereo"]["ok_frames"],
+        "stereo_vio_session": stereo_vio["ok_frames"],
+        "vio_staged_session": staged["ok_frames"]}
     report["stereo_session_calls"] = stereo["match_calls"]
     report["fisheye_stereo_calls"] = fisheye["fisheye_stereo"]["match_calls"]
+    report["stereo_vio_session_calls"] = stereo_vio["match_calls"]
     report["launches_per_bench_frame"] = launches["masked_match"] / FRAMES
     report["session_launches_per_tracked_frame"] = (
         session["launches_tracked"] / max(session["ok_frames"], 1))

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the orb_slam_fusion_tpu SLAM engine.
 
 The JAX package ``orb_slam_fusion_tpu`` is the reference; this package
-mirrors its subpackage layout (``frontend/``, ``map/``, ``solver/``,
-``engine/``) and function names so each counterpart is easy to find. It
+mirrors its subpackage layout (``frontend/``, ``map/``, ``imu/``,
+``solver/``, ``engine/``) and function names so each counterpart is easy to find. It
 imports ``torch`` and numpy only.
 
 Entry points that create tensors take a ``device`` argument. Left unset it

@@ -3,8 +3,10 @@
 Counterpart of ``orb_slam_fusion_tpu/lie.py``. Conventions are the same:
 rotations are ``(..., 3, 3)``, SE(3) is ``(R, t)`` acting as ``R @ x + t``,
 and tangent vectors are ``[v, w]`` (translation first). Small-angle cases
-use ``torch.where`` on Taylor expansions, so every function is branch-free
-and broadcasts over leading batch dimensions. Sim(3) is not ported yet.
+use ``torch.where`` on Taylor expansions, so every function is branch-free,
+broadcasts over leading batch dimensions and differentiates under
+``torch.func.jacfwd`` (the inertial solvers' Jacobians). Sim(3) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -146,6 +148,11 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
                     (th - torch.sin(th)) / (th ** 3))[..., None, None]
     return _eye3_like(W) + b * W + c * W2
+
+
+def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian J_r of SO(3): exp(w + dw) ~ exp(w) exp(J_r dw)."""
+    return so3_left_jacobian(-w)
 
 
 def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:

@@ -93,6 +93,62 @@ def features_to_numpy(f: Features) -> Dict[str, np.ndarray]:
     return {n: _to_numpy(n, getattr(f, n)) for n in Features._fields}
 
 
+def preintegrated_from_numpy(fields: Dict[str, object], device=None):
+    """A ``Preintegrated`` from a dict of numpy arrays keyed by field name
+    (``bias0`` as a (gyro, acc) pair); float32 tensors on ``device``."""
+    from ..imu.preintegration import ImuBias, Preintegrated
+    dev = resolve_device(device)
+    out = {n: _to_torch(n, np.asarray(fields[n], np.float32), dev)
+           for n in Preintegrated._fields if n != "bias0"}
+    g, a = fields["bias0"]
+    return Preintegrated(bias0=ImuBias(
+        _to_torch("g", np.asarray(g, np.float32), dev),
+        _to_torch("a", np.asarray(a, np.float32), dev)), **out)
+
+
+def _inertial_state_from_numpy(tracker, state: Dict[str, object]) -> None:
+    """The inertial part of ``tracker_state_from_numpy``."""
+    from ..imu.preintegration import ImuBias, ImuCalib
+    from ..solver.pose_inertial_prior import PoseImuPrior
+
+    dev = tracker.device
+
+    def t(name, a):
+        return _to_torch(name, np.asarray(a, np.float32), dev)
+
+    def bias(b):
+        return ImuBias(t("g", b[0]), t("a", b[1]))
+
+    def pre(p):
+        return None if p is None else preintegrated_from_numpy(p, dev)
+
+    c = state["calib"]
+    tracker.calib = ImuCalib(**{n: t(n, c[n]) for n in ImuCalib._fields})
+    tracker.bias = bias(state["bias"])
+    tracker.cur_vel = t("v", state["cur_vel"])
+    tracker.gravity_w = t("g", state["gravity_w"])
+    tracker.kf_vel = [np.array(v, np.float32) for v in state["kf_vel"]]
+    tracker.kf_bias = [bias(b) for b in state["kf_bias"]]
+    tracker.kf_pre = [pre(p) for p in state["kf_pre"]]
+    tracker.kf_raw = [None if r is None else tuple(
+        np.array(x, np.float64) for x in r) for r in state["kf_raw"]]
+    tracker.kf_time = [float(x) for x in state["kf_time"]]
+    tracker._buf_kf = tuple(np.asarray(b, np.float64).tolist()
+                            for b in state["buf_kf"])
+    tracker._pre_frame = pre(state["pre_frame"])
+    tracker._prev_pose_imu = se3_from_numpy(state["prev_pose_imu"], dev)
+    tracker._prev_vel_imu = t("v", state["prev_vel_imu"])
+    pr = state["prior"]
+    tracker._prior = None if pr is None else PoseImuPrior(
+        pose=se3_from_numpy(pr["pose"], dev), vel=t("v", pr["vel"]),
+        bg=t("g", pr["bg"]), ba=t("a", pr["ba"]), H=t("H", pr["H"]))
+    tracker._imu_stage = int(state["imu_stage"])
+    tracker._imu_init_time = float(state["imu_init_time"])
+    tracker.imu_initialized = bool(state["imu_initialized"])
+    lt = state["last_frame_time"]
+    tracker._last_frame_time = None if lt is None else float(lt)
+
+
 def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     """Load a session's state, as numpy, into a port ``MonoTracker``.
 
@@ -106,8 +162,16 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     ``traj_rel`` ([(timestamp, kf, (R, t))]) and ``trajectory``
     ([(timestamp, (R, t), tracked, state string)]); a stereo session's
     state also holds ``kf_uright`` (K, F), its per-keyframe right-image u
-    table. A background local BA in flight does not travel: drain it on
-    the source side first.
+    table. An inertial session's state (``calib`` present) also holds
+    ``calib`` (``ImuCalib`` fields), ``bias`` and each of ``kf_bias`` as
+    (gyro, acc) pairs, ``cur_vel``, ``gravity_w``, ``kf_vel``, ``kf_pre``
+    and ``pre_frame`` (``Preintegrated`` dicts or None), ``kf_raw``
+    ((acc, gyro, dt) or None), ``kf_time``, ``buf_kf`` (the three sample
+    lists since the last keyframe), ``prev_pose_imu``, ``prev_vel_imu``,
+    ``prior`` (a dict of the ``PoseImuPrior`` fields, or None),
+    ``imu_stage``, ``imu_init_time``, ``imu_initialized`` and
+    ``last_frame_time``. A background local BA in flight does not travel:
+    drain it on the source side first.
     """
     from ..engine.tracker import FrameRecord, TrackState
 
@@ -142,3 +206,5 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
                           for ts, T, n, s in state["trajectory"]]
     if state.get("kf_uright") is not None:
         tracker.kf_uright = _to_torch("kf_uright", state["kf_uright"], dev)
+    if state.get("calib") is not None:
+        _inertial_state_from_numpy(tracker, state)

@@ -3,7 +3,8 @@
 Counterpart of ``orb_slam_fusion_tpu/sim.py`` (``SyntheticWorld``,
 ``make_corridor_world``, ``world_from_trajectory``, ``render_frame``,
 ``render_stereo_frame``, ``render_fisheye_stereo_frame``,
-``render_image``, ``gt_positions``), for the port's tests and
+``render_image``, ``gt_positions``, and the inertial sessions'
+``make_vio_sequence``), for the port's tests and
 ``chip_smoke.py``, which run without JAX. Given the same arguments it
 returns the reference's arrays bit for bit, so both packages track the
 same inputs.
@@ -380,6 +381,93 @@ def world_from_trajectory(positions: np.ndarray, n_points: int = 6000,
         timestamps = np.arange(T) / 20.0
     return SyntheticWorld(pts, desc, poses, np.asarray(timestamps),
                           _canonical_distances(pts, positions, rng))
+
+
+class VioSequence(NamedTuple):
+    world: SyntheticWorld          # points/descriptors/frame poses (camera)
+    frame_imu: list                # per frame: (acc (N,3), gyro (N,3), t (N,))
+    vel: np.ndarray                # (T,3) GT body velocity in world
+    gravity: np.ndarray            # (3,)
+    gyro_bias_true: np.ndarray = np.zeros(3)   # injected sensor biases
+    acc_bias_true: np.ndarray = np.zeros(3)
+
+
+def make_vio_sequence(n_frames: int = 120, fps: float = 20.0,
+                      imu_rate: float = 200.0, n_points: int = 5000,
+                      seed: int = 0, gyro_noise: float = 0.0,
+                      acc_noise: float = 0.0, gyro_bias: float = 0.0,
+                      acc_bias: float = 0.0) -> VioSequence:
+    """Monocular-inertial synthetic sequence with exactly consistent IMU:
+    body accelerations and rates sampled at IMU rate and Euler-integrated
+    into the frame poses (camera = body, world z up). The rotation step is
+    the reference's eager float32 ``so3_exp`` of ``w_b * dt`` (rounded from
+    float64 first), chained into a float64 ``R @ Rtmp``."""
+    rng = np.random.RandomState(seed)
+    g_w = np.array([0.0, 0.0, -9.81])
+    dt = 1.0 / imu_rate
+    n_imu = int(round(imu_rate / fps))
+    total = n_frames * n_imu
+
+    # analytic body-rate / world-acceleration profiles (gentle flight)
+    tt = np.arange(total) * dt
+    T_total = n_frames / fps
+    a_w = np.stack([
+        0.6 * np.sin(2 * np.pi * tt / T_total * 2.0),
+        0.4 * np.sin(2 * np.pi * tt / T_total * 3.0 + 1.0),
+        0.3 * np.sin(2 * np.pi * tt / T_total * 1.5 + 2.0),
+    ], axis=1)
+    w_b = np.stack([
+        0.10 * np.sin(2 * np.pi * tt / T_total * 1.0),
+        0.25 * np.sin(2 * np.pi * tt / T_total * 0.5),
+        0.05 * np.sin(2 * np.pi * tt / T_total * 2.0 + 0.7),
+    ], axis=1)
+
+    bg = rng.randn(3) * gyro_bias
+    ba_ = rng.randn(3) * acc_bias
+
+    R = np.eye(3)
+    p = np.zeros(3)
+    v = np.array([0.25, 0.05, 0.6])   # initial velocity (forward = +z-ish)
+    Rs, ts, vels = [], [], []
+    accs = np.zeros((total, 3))
+    gyros = np.zeros((total, 3))
+    for k in range(total):
+        if k % n_imu == 0:
+            Rs.append(R.T.copy())            # R_cw = R_wb^T (cam = body)
+            ts.append((-R.T @ p).copy())
+            vels.append(v.copy())
+        accs[k] = R.T @ (a_w[k] - g_w) + ba_ \
+            + rng.randn(3) * acc_noise
+        gyros[k] = w_b[k] + bg + rng.randn(3) * gyro_noise
+        p = p + v * dt + 0.5 * a_w[k] * dt * dt
+        v = v + a_w[k] * dt
+        Rtmp = so3_exp(np.asarray(w_b[k] * dt, f32))
+        R = R @ Rtmp
+
+    poses = SE3(np.stack(Rs).astype(f32), np.stack(ts).astype(f32))
+    timestamps = np.arange(n_frames) / fps
+
+    # world points around the traversed volume
+    centers = -np.einsum("kji,kj->ki", np.stack(Rs), np.stack(ts))
+    lo = centers.min(axis=0) - 4.0
+    hi = centers.max(axis=0) + 4.0
+    hi[2] = max(hi[2], lo[2] + 12.0)
+    pts = rng.uniform(lo, hi, size=(n_points, 3)).astype(np.float32)
+    desc = rng.randint(0, 2 ** 32, size=(n_points, 8),
+                       dtype=np.uint64).astype(np.uint32)
+    world = SyntheticWorld(pts, desc, poses, timestamps,
+                           _canonical_distances(pts, centers, rng))
+
+    frame_imu = []
+    for f in range(n_frames):
+        sl = slice(f * n_imu, (f + 1) * n_imu)
+        t_meas = tt[sl] + dt  # measurement timestamps (end of each step)
+        frame_imu.append((accs[sl].astype(np.float32),
+                          gyros[sl].astype(np.float32),
+                          t_meas.astype(np.float64)))
+    return VioSequence(world=world, frame_imu=frame_imu,
+                       vel=np.stack(vels), gravity=g_w,
+                       gyro_bias_true=bg, acc_bias_true=ba_)
 
 
 def gt_positions(world: SyntheticWorld) -> np.ndarray:

@@ -15,15 +15,19 @@ the solution are the reference's; the float summation order is not.
 A problem built with ``u_right``/``stereo_mask``/``bf`` carries the
 reference's stereo factor (EdgeStereoSE3ProjectXYZ): a third residual row
 u_R = u_L - bf/z on its stereo factors, held to the 3-dof chi-square
-threshold (``_factor_chi2_th``); a monocular problem keeps two rows. The
-matrix-free PCG step (global BA) is not ported yet (ROADMAP A13).
+threshold (``_factor_chi2_th``); a monocular problem keeps two rows.
+``make_problem`` builds the reference's general layout (each landmark's
+factor rows in order, up to ``max_obs``), which the visual-inertial BA
+(``solver/vi_ba.py``) solves; the visual solves here, and the matrix-free
+PCG step of global BA, take only the window layout (the rest is ROADMAP
+A13).
 ``ChunkedLM`` runs the same two-phase solve resumably, a few iterations
 per call, for the tracker's background local BA.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -99,6 +103,68 @@ def window_landmark_groups(kf_idx: torch.Tensor, mp_idx: torch.Tensor,
     lm = lm.scatter_reduce(0, flat, enc, reduce="amax").view(
         num_points, window_size)
     return torch.clamp(lm - 1, min=0), lm > 0
+
+
+def build_landmark_groups(mp_idx: torch.Tensor, num_points: int,
+                          max_obs: Optional[int] = None,
+                          valid: Optional[torch.Tensor] = None):
+    """Group factor rows by landmark, padded to a static width: (lm_factor_idx
+    (M, O) int32, lm_factor_valid (M, O) bool), landmark m's valid factor
+    rows in increasing order, at most ``max_obs`` of them (the reference's
+    host loop, as a stable sort on the device). ``max_obs`` None takes the
+    largest count (one host read)."""
+    dev = mp_idx.device
+    F = mp_idx.shape[0]
+    if valid is None:
+        valid = torch.ones(F, dtype=torch.bool, device=dev)
+    key = torch.where(valid.to(torch.bool), mp_idx.long(),
+                      torch.full((F,), num_points, dtype=torch.long,
+                                 device=dev))
+    if max_obs is None:
+        counts = torch.bincount(key, minlength=num_points + 1)[:num_points]
+        max_obs = max(1, int(counts.max()) if num_points else 1)
+    skey, order = torch.sort(key, stable=True)
+    first = torch.searchsorted(skey, skey)
+    rank = torch.arange(F, device=dev) - first
+    keep = (skey < num_points) & (rank < max_obs)
+    dump = num_points * max_obs
+    flat = torch.where(keep, skey * max_obs + rank,
+                       torch.full_like(skey, dump))
+    idx = torch.zeros(dump + 1, dtype=torch.int32, device=dev).scatter(
+        0, flat, order.to(torch.int32))
+    mask = torch.zeros(dump + 1, dtype=torch.bool, device=dev).scatter(
+        0, flat, keep)
+    return (idx[:dump].view(num_points, max_obs),
+            mask[:dump].view(num_points, max_obs))
+
+
+def make_problem(poses: lie.SE3, points, kf_idx, mp_idx, uv, inv_sigma2,
+                 valid, fixed_pose, cam_params, fixed_point=None,
+                 max_obs: Optional[int] = None, u_right=None,
+                 stereo_mask=None, bf=0.0) -> BAProblem:
+    """BAProblem in the general layout (``build_landmark_groups``). As in
+    the reference, the stereo fields are always set: zeros and an all-false
+    mask unless given, so every factor has the third (zero) row."""
+    dev = points.device
+    lm_idx, lm_valid = build_landmark_groups(mp_idx, points.shape[0],
+                                             max_obs, valid)
+    F = kf_idx.shape[0]
+    if fixed_point is None:
+        fixed_point = torch.zeros(points.shape[0], dtype=torch.bool,
+                                  device=dev)
+    if u_right is None:
+        u_right = torch.zeros(F, dtype=torch.float32, device=dev)
+    if stereo_mask is None:
+        stereo_mask = torch.zeros(F, dtype=torch.bool, device=dev)
+    return BAProblem(
+        poses=poses, points=points, kf_idx=kf_idx.to(torch.int32),
+        mp_idx=mp_idx.to(torch.int32), uv=uv, inv_sigma2=inv_sigma2,
+        valid=valid.to(torch.bool), fixed_pose=fixed_pose.to(torch.bool),
+        fixed_point=fixed_point.to(torch.bool), cam_params=cam_params,
+        lm_factor_idx=lm_idx, lm_factor_valid=lm_valid,
+        u_right=u_right.to(torch.float32),
+        stereo_mask=stereo_mask.to(torch.bool),
+        bf=torch.tensor(float(bf), dtype=torch.float32, device=dev))
 
 
 def make_window_problem(poses: lie.SE3, points, kf_idx, mp_idx, uv,
@@ -336,7 +402,9 @@ def bundle_adjustment(prob: BAProblem, cam_model: str = cameras.PINHOLE,
     re-mask, ``iters_second`` plain iterations. Returns (poses, points,
     inlier mask (F,), candidate costs (iters,))."""
     if not window_layout:
-        raise NotImplementedError("only the window layout is ported")
+        raise NotImplementedError(
+            "visual BA over make_problem's layout (global BA) is not ported "
+            "yet: ROADMAP A13")
     inlier = torch.ones_like(prob.valid)
     poses, points, costs1 = _lm_run(prob.poses, prob.points, inlier, prob,
                                     cam_model, iters_first, chi2_th, True)
@@ -367,7 +435,9 @@ class ChunkedLM:
                 "the matrix-free PCG reduced solve (pose_stride > 0) is not "
                 "ported yet: ROADMAP A13")
         if not window_layout:
-            raise NotImplementedError("only the window layout is ported")
+            raise NotImplementedError(
+                "visual BA over make_problem's layout (global BA) is not "
+                "ported yet: ROADMAP A13")
         self.prob = prob
         self.cam_model = cam_model
         self.chi2_th = chi2_th

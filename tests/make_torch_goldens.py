@@ -31,6 +31,19 @@ which the input hashes let a run on another machine check.
   Kannala-Brandt ``MonoTracker`` and ``FisheyeStereoTracker`` on the
   sequences of ``test_rgbd_e2e.py`` and ``test_fisheye_e2e.py`` at those
   tests' widths (512 features, 6144 map points).
+* ``stereo_vio_session_480x752.json``: ``StereoVioTracker`` (baseline
+  0.11 m, ``make_calib()``) at ``SlamConfig``'s default widths on the
+  stereo-inertial e2e sequence (``make_vio_sequence``, 160 frames, seed
+  4), per frame also the IMU stage and bias; it also writes
+  ``stereo_vio_solver_calls.npz``, the arguments and results of the
+  ``inertial_init`` and ``visual_inertial_ba`` calls of the IMU-init
+  keyframe and of the first VIBA1 keyframe (``tests/test_torch_vi_ba.py``).
+* ``stereo_vio_e2e_session_480x752.json``: the same at the e2e test's
+  widths (512 features, 96 keyframe slots) over 80 frames, which the CPU
+  tests hold the port's free-running session to.
+* ``vio_staged_session_480x752.json``: ``VioTracker`` on the sequence and
+  at the widths of ``test_staged_imu_init.py`` (180 frames at 10 fps, so
+  all three IMU stages fire).
 * ``fisheye_image_session_512x512.json``: the Kannala-Brandt
   ``MonoTracker`` through ``process_image`` on the first frames of the
   fisheye mono sequence, rendered as 512x512 images (no frame
@@ -291,6 +304,156 @@ def fisheye_image_session():
     return finish(tr, world, frames, FISHEYE_IMAGE)
 
 
+STEREO_VIO = dict(config=dict(loop_closing=False), seq=chip_smoke.VIO_SEQ,
+                  render=chip_smoke.VIO_RENDER,
+                  baseline=chip_smoke.VIO_BASELINE)
+STEREO_VIO_E2E = dict(
+    STEREO_VIO, config=json.loads(json.dumps(chip_smoke.VIO_E2E_CONFIG)),
+    seq=chip_smoke.VIO_E2E_SEQ,
+    render=dict(chip_smoke.VIO_RENDER, n_features=512))
+VIO_STAGED = dict(config=json.loads(json.dumps(chip_smoke.STAGED_CONFIG)),
+                  seq=chip_smoke.STAGED_SEQ, render=chip_smoke.STAGED_RENDER)
+# the solver calls captured from stereo_vio_session for
+# tests/test_torch_vi_ba.py: those of the IMU-init keyframe and of the
+# first VIBA1 keyframe
+VIO_SNAPSHOT = os.path.join(OUT, "stereo_vio_solver_calls.npz")
+
+
+def vio_record(tr, rec, digest):
+    out = record(tr, rec, digest)
+    out.update(imu_initialized=bool(tr.imu_initialized),
+               imu_stage=int(tr._imu_stage),
+               bias=[float(v) for v in np.concatenate(
+                   [np.asarray(tr.bias.gyro), np.asarray(tr.bias.acc)])])
+    return out
+
+
+def _flat(prefix, x, out):
+    """Flatten a pytree of arrays (NamedTuples, tuples) into npz keys."""
+    if x is None:
+        return
+    if hasattr(x, "_fields"):
+        for f in x._fields:
+            _flat(f"{prefix}.{f}", getattr(x, f), out)
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            _flat(f"{prefix}.{i}", v, out)
+    else:
+        out[prefix] = np.asarray(x)
+
+
+class _Capture:
+    """Records the reference tracker's inertial_init / visual_inertial_ba
+    calls (arguments and results) made during one frame."""
+
+    def __init__(self):
+        import orb_slam_fusion_tpu.engine.vio_tracker as vt
+        self.vt, self.calls = vt, []
+        self.orig = (vt.inertial_init, vt.visual_inertial_ba)
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                self.calls.append((name, args, kw, out))
+                return out
+            return call
+        vt.inertial_init = wrap("inertial_init", self.orig[0])
+        vt.visual_inertial_ba = wrap("visual_inertial_ba", self.orig[1])
+
+    def close(self):
+        self.vt.inertial_init, self.vt.visual_inertial_ba = self.orig
+
+
+def _snapshot(calls, tag, out):
+    for n, (name, args, kw, res) in enumerate(calls):
+        key = f"{tag}.{n}.{name}"
+        if name == "inertial_init":
+            poses, ifac, calib = args
+            _flat(f"{key}.poses", poses, out)
+            _flat(f"{key}.ifac", ifac, out)
+            _flat(f"{key}.calib", calib, out)
+            for k in ("optimize_scale", "prior_g", "prior_a"):
+                out[f"{key}.kw.{k}"] = np.asarray(kw[k])
+            _flat(f"{key}.out", res, out)
+        else:
+            state, prob, ifac, calib = args
+            _flat(f"{key}.state", state, out)
+            prob = prob._replace(lm_factor_idx=None, lm_factor_valid=None)
+            _flat(f"{key}.prob", prob, out)
+            _flat(f"{key}.ifac", ifac, out)
+            _flat(f"{key}.calib", calib, out)
+            out[f"{key}.kw.fixed_pose"] = np.asarray(kw["fixed_pose"])
+            out[f"{key}.kw.fixed_inertial"] = np.asarray(kw["fixed_inertial"])
+            out[f"{key}.kw.iters"] = np.asarray(kw["iters"])
+            _flat(f"{key}.out", res, out)
+
+
+def stereo_vio_session(spec=STEREO_VIO, snapshot=None):
+    from orb_slam_fusion_tpu.engine.vio_tracker import StereoVioTracker
+    from orb_slam_fusion_tpu.imu.preintegration import make_calib
+    cfg = config_of(spec["config"])
+    seq = sim.make_vio_sequence(**spec["seq"])
+    world = seq.world
+    tr = StereoVioTracker(cfg, spec["baseline"], make_calib())
+    cam = jnp.asarray(cfg.cam_params)
+    r = dict(spec["render"])
+    nf = r.pop("n_features")
+    cap = _Capture() if snapshot else None
+    snaps, frames = {}, []
+    try:
+        for k in range(spec["seq"]["n_frames"]):
+            fL, fR = sim.render_stereo_frame(world, k, cam, cfg.image_size,
+                                             nf, spec["baseline"], **r)
+            imu = chip_smoke._imu_of(seq, k)
+            stage0 = tr._imu_stage
+            if cap:
+                cap.calls = []
+            rec = tr.process_stereo_imu(fL, fR, float(world.timestamps[k]),
+                                        *imu)
+            frames.append(vio_record(tr, rec, feats_sha(fL, fR)
+                                     + sha(*imu)))
+            if cap and tr._imu_stage != stage0 and tr._imu_stage <= 2:
+                _snapshot(cap.calls, f"stage{tr._imu_stage}", snaps)
+                snaps[f"stage{tr._imu_stage}.frame"] = np.asarray(k)
+            print("stereo vio", k, frames[-1]["state"],
+                  frames[-1]["tracked"], frames[-1]["imu_stage"],
+                  flush=True)
+    finally:
+        if cap:
+            cap.close()
+    if snapshot:
+        np.savez_compressed(snapshot, **snaps)
+    return finish(tr, world, frames, spec, with_scale=False)
+
+
+def vio_staged_session():
+    from orb_slam_fusion_tpu.engine.vio_tracker import VioTracker
+    from orb_slam_fusion_tpu.imu.preintegration import make_calib
+    cfg = config_of(VIO_STAGED["config"])
+    seq = sim.make_vio_sequence(**VIO_STAGED["seq"])
+    world = seq.world
+    tr = VioTracker(cfg, make_calib())
+    cam = jnp.asarray(cfg.cam_params)
+    r = dict(VIO_STAGED["render"])
+    nf = r.pop("n_features")
+    frames = []
+    for k in range(VIO_STAGED["seq"]["n_frames"]):
+        f = sim.render_frame(world, k, cam, cfg.image_size, nf, **r)
+        imu = chip_smoke._imu_of(seq, k)
+        rec = tr.process_frame_imu(f, float(world.timestamps[k]), *imu)
+        frames.append(vio_record(tr, rec, feats_sha(f) + sha(*imu)))
+        print("vio staged", k, frames[-1]["state"], frames[-1]["tracked"],
+              frames[-1]["imu_stage"], flush=True)
+    g = finish(tr, world, frames, VIO_STAGED, with_scale=False)
+    # tests/test_staged_imu_init.py's ATE: the second half, metric
+    start = len(frames) // 2
+    traj = tr.trajectory_tum()
+    g["ate_second_half_m"] = float(ate_rmse(
+        traj[start:, 1:4], sim.gt_positions(world)[start:len(traj)],
+        with_scale=False))
+    return g
+
+
 SESSIONS = {"mono_session_480x752.json": mono_session,
             "image_session_240x376.json": image_session,
             "stereo_session_480x752.json": stereo_session,
@@ -299,7 +462,12 @@ SESSIONS = {"mono_session_480x752.json": mono_session,
             "rgbd_session_480x752.json": rgbd_session,
             "fisheye_mono_session_512x512.json": fisheye_mono_session,
             "fisheye_stereo_session_512x512.json": fisheye_stereo_session,
-            "fisheye_image_session_512x512.json": fisheye_image_session}
+            "fisheye_image_session_512x512.json": fisheye_image_session,
+            "stereo_vio_session_480x752.json": (
+                lambda: stereo_vio_session(snapshot=VIO_SNAPSHOT)),
+            "stereo_vio_e2e_session_480x752.json": (
+                lambda: stereo_vio_session(STEREO_VIO_E2E)),
+            "vio_staged_session_480x752.json": vio_staged_session}
 
 
 def main():

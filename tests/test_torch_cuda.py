@@ -292,3 +292,123 @@ def test_cuda_wrapper_rejects_cpu_tensors(cuda):
         mm.masked_match_cuda(uvr, torch.zeros(4, 8, dtype=torch.int32),
                              torch.zeros(2, 4),
                              torch.zeros(2, 8, dtype=torch.int32), False)
+
+
+def _close_on_card(a, b, atol, what):
+    assert torch.isfinite(b).all(), what
+    d = float((a.double() - b.cpu().double()).abs().max())
+    assert d <= atol, (what, d)
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_vi_ba_on_card_matches_cpu(cuda, stereo):
+    """``visual_inertial_ba`` (cuSOLVER's Cholesky, cuBLAS's products) on
+    the card against the port on the CPU, on the seeded problems the CPU
+    tests hold to the JAX package: poses, velocities and biases within
+    1e-4, points within 1e-3, the candidate costs within 1e-3 relative."""
+    import torch_vio_problems as vp
+    from orb_slam_fusion_tpu_torch.solver import vi_ba as tvi
+    d = vp.seeded(3 if stereo else 4, stereo)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        state, prob, ifac, calib = vp.port_problem(d, stereo, dev)
+        fixed = torch.from_numpy(d["fixed"]).to(dev)
+        outs.append(tvi.visual_inertial_ba(state, prob, ifac, calib,
+                                           fixed_pose=fixed,
+                                           fixed_inertial=fixed, iters=10))
+    (sc, pc, cc), (sg, pg, cg) = outs
+    for name, a, b in (("R", sc.poses.R, sg.poses.R),
+                       ("t", sc.poses.t, sg.poses.t), ("vel", sc.vel, sg.vel),
+                       ("bg", sc.bg, sg.bg), ("ba", sc.ba, sg.ba)):
+        _close_on_card(a, b, 1e-4, name)
+    _close_on_card(pc, pg, 1e-3, "points")
+    _close_on_card(cc / cc.abs().max(), cg / cc.abs().max().to(cuda), 1e-3,
+                   "costs")
+
+
+def test_inertial_init_and_pose_solve_on_card_match_cpu(cuda):
+    """``inertial_init`` (with the scale) and ``pose_inertial_marginalized``
+    on the card against the port on the CPU: scale, R_wg, biases,
+    velocities, pose within 1e-4, the same inliers, the marginal's
+    information within 1e-3 of its largest entry."""
+    import torch_vio_problems as vp
+    from orb_slam_fusion_tpu_torch import lie
+    from orb_slam_fusion_tpu_torch.imu.factors import information_from_cov
+    from orb_slam_fusion_tpu_torch.solver import pose_inertial_prior as pp
+    from orb_slam_fusion_tpu_torch.solver import vi_ba as tvi
+    d = vp.seeded(5, False, K=10, step=5, pose_noise=0.0)
+    inits, solves = [], []
+    for dev in (torch.device("cpu"), cuda):
+        state, prob, ifac, calib = vp.port_problem(d, False, dev)
+        poses = lie.SE3(state.poses.R, state.poses.t * 0.6)
+        inits.append(tvi.inertial_init(poses, ifac, calib,
+                                       optimize_scale=True, prior_a=1e10))
+        pre = ifac.pre
+        pre1 = type(pre)(*(type(x)(x.gyro[0], x.acc[0]) if hasattr(x, "gyro")
+                           else x[0] for x in pre))
+        prior = pp.make_initial_prior(
+            lie.SE3(state.poses.R[0], state.poses.t[0]), state.vel[0],
+            type(pre.bias0)(state.bg[0], state.ba[0]))
+        sel = prob.kf_idx == 1
+        solves.append(pp.pose_inertial_marginalized(
+            prior, lie.SE3(state.poses.R[1], state.poses.t[1]),
+            state.vel[1], pre1, information_from_cov(pre1), calib,
+            prob.points[prob.mp_idx[sel].long()], prob.uv[sel],
+            prob.inv_sigma2[sel], prob.valid[sel], prob.cam_params))
+    (s0, R0, b0, v0, _), (s1, R1, b1, v1, _) = inits
+    for name, a, b in (("s", s0, s1), ("R_wg", R0, R1), ("bg", b0.gyro,
+                       b1.gyro), ("ba", b0.acc, b1.acc), ("vel", v0, v1)):
+        _close_on_card(a, b, 1e-4, name)
+    c, g = solves
+    _close_on_card(c[0].R, g[0].R, 1e-4, "pose R")
+    _close_on_card(c[0].t, g[0].t, 1e-4, "pose t")
+    _close_on_card(c[1], g[1], 1e-4, "vel")
+    assert torch.equal(c[4], g[4].cpu())
+    H = c[3].H.double()
+    _close_on_card(H / H.abs().max(), g[3].H / float(H.abs().max()), 1e-3,
+                   "prior H")
+
+
+def test_stereo_vio_frames_launch_the_kernel(cuda):
+    """The first 12 frames of the stereo-inertial e2e sequence on the card
+    through ``StereoVioTracker.process_stereo_imu``: every tracked frame
+    launches the kernel 3 times (6 where the step falls back to the
+    reference keyframe), each launch agrees with the plain version."""
+    import chip_smoke
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig, StereoVioTracker
+    from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
+    from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
+
+    cfg = SlamConfig(cam_params=(400.0, 400.0, 376.0, 240.0),
+                     orb=OrbParams(n_features=512), max_keyframes=96,
+                     max_map_points=8192, ba_window=6, loop_closing=False)
+    seq = sim.make_vio_sequence(n_frames=12, seed=4, gyro_noise=1.7e-4,
+                                acc_noise=2e-3, gyro_bias=0.002,
+                                acc_bias=0.02)
+    tr = StereoVioTracker(cfg, 0.11, make_calib(device=cuda), device=cuda)
+    seen, launch = [], mm.masked_match_cuda
+
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
+                                                       kp_desc)))
+        return out
+
+    mm.masked_match_cuda = record
+    try:
+        for k in range(12):
+            before = len(seen)
+            fL, fR = sim.render_stereo_frame(seq.world, k, cfg.cam_params,
+                                             cfg.image_size, 512, 0.11,
+                                             seed=51, device=cuda)
+            rec = tr.process_stereo_imu(fL, fR, float(seq.world.timestamps[k]),
+                                        *chip_smoke._imu_of(seq, k))
+            if rec.state == "ok":
+                assert len(seen) - before in (3, 6), (k, len(seen) - before)
+    finally:
+        mm.masked_match_cuda = launch
+    assert tr.state.name == "OK" and seen and len(tr.kf_pre) >= 2
+    for got, want in seen:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

@@ -159,3 +159,72 @@ def test_golden_records_are_complete(name):
     assert np.isfinite(g["ate_m"])
     traj = np.asarray(g["trajectory_tum"])
     assert traj.shape == (len(g["frames"]), 8) and np.isfinite(traj).all()
+
+
+INERTIAL = {
+    "stereo_vio_session_480x752.json": dict(
+        seq=chip_smoke.VIO_SEQ, render=chip_smoke.VIO_RENDER,
+        config={"loop_closing": False}),
+    "stereo_vio_e2e_session_480x752.json": dict(
+        seq=chip_smoke.VIO_E2E_SEQ,
+        render=dict(chip_smoke.VIO_RENDER, n_features=512),
+        config=chip_smoke.VIO_E2E_CONFIG),
+    "vio_staged_session_480x752.json": dict(
+        seq=chip_smoke.STAGED_SEQ, render=chip_smoke.STAGED_RENDER,
+        config=chip_smoke.STAGED_CONFIG),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INERTIAL))
+def test_inertial_golden_matches_chip_smoke(name):
+    """The inertial goldens carry ``chip_smoke.py``'s settings; the port's
+    ``sim`` regenerates their inputs (both feature sets or the one, and the
+    frame's IMU samples) on the first and last frames; their records have
+    the IMU stage and bias of every frame; the sessions reached the stages
+    ``chip_smoke.py`` gates (IMU init in the stereo ones, all three in the
+    staged one)."""
+    g = _load(name)
+    want = INERTIAL[name]
+    assert g["seq"] == want["seq"] and g["render"] == want["render"]
+    assert g["config"] == json.loads(json.dumps(want["config"]))
+    assert len(g["frames"]) == g["seq"]["n_frames"]
+    keys = {"state", "tracked", "n_kf", "n_mp", "inputs_sha256",
+            "imu_initialized", "imu_stage", "bias"}
+    assert all(set(f) == keys and len(f["bias"]) == 6 for f in g["frames"])
+    stages = [f["imu_stage"] for f in g["frames"]]
+    assert stages == sorted(stages)
+    assert set(stages) >= ({0, 1, 2, 3} if "staged" in name else {0, 1})
+    assert g["tracked"] > 0.9 * len(g["frames"])
+    seq = sim.make_vio_sequence(**g["seq"])
+    c = g["config"]
+    cam = tuple(c.get("cam_params", (458.654, 457.296, 367.215, 248.375)))
+    size = tuple(c.get("image_size", (480, 752)))
+    r = dict(g["render"])
+    nf = r.pop("n_features")
+    for k in (0, len(g["frames"]) - 1):
+        if "staged" in name:
+            arrays = list(sim.render_frame_numpy(seq.world, k, cam, size, nf,
+                                                 **r).values())
+        else:
+            pair = sim.render_stereo_frame_numpy(seq.world, k, cam, size, nf,
+                                                 g["baseline"], **r)
+            arrays = [v for f in pair for v in f.values()]
+        digest = chip_smoke._sha(*arrays) + chip_smoke._sha(
+            *chip_smoke._imu_of(seq, k))
+        assert digest == g["frames"][k]["inputs_sha256"], k
+    traj = np.asarray(g["trajectory_tum"])
+    assert traj.shape == (len(g["frames"]), 8) and np.isfinite(traj).all()
+
+
+def test_stereo_vio_solver_snapshot_is_small_and_complete():
+    """The solver calls ``tests/test_torch_vi_ba.py`` replays: both
+    keyframes' calls present, 5 MB at most."""
+    path = GOLDENS / "stereo_vio_solver_calls.npz"
+    assert path.stat().st_size <= 5 * 2 ** 20
+    z = np.load(path)
+    calls = sorted({".".join(k.split(".")[:3]) for k in z.files
+                    if k.count(".") >= 3})
+    assert [c.split(".", 1)[1] for c in calls] == [
+        "0.inertial_init", "1.visual_inertial_ba", "0.visual_inertial_ba",
+        "1.inertial_init", "2.visual_inertial_ba"]
+    assert int(z["stage1.frame"]) < int(z["stage2.frame"])

@@ -129,3 +129,33 @@ def test_stereo_entry_points_refuse_cpu_without_device(monkeypatch):
             call()
     tr = StereoTracker(cfg, 0.11, device="cpu")
     assert tr.kf_uright.device.type == "cpu"
+
+
+def test_inertial_entry_points_refuse_cpu_without_device(monkeypatch):
+    """The inertial sessions and their calibration: CUDA unless told
+    otherwise, as the visual ones."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch.engine import (FisheyeStereoVioTracker,
+                                                  StereoVioTracker,
+                                                  VioTracker)
+    from orb_slam_fusion_tpu_torch.imu.preintegration import (make_calib,
+                                                              zero_bias)
+    calib = make_calib(device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SlamConfig(loop_closing=False)
+    calls = [
+        lambda: make_calib(),
+        lambda: zero_bias(),
+        lambda: VioTracker(cfg, calib),
+        lambda: StereoVioTracker(cfg, 0.11, calib),
+        lambda: FisheyeStereoVioTracker(cfg, cfg.cam_params, np.eye(4),
+                                        calib),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    tr = StereoVioTracker(cfg, 0.11, calib, device="cpu")
+    assert tr.calib.Tbc_R.device.type == "cpu"
+    assert tr.bias.gyro.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="A13"):
+        tr._on_maps_merged(None, 0, None)

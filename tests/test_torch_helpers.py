@@ -182,10 +182,50 @@ def _pose_np(T):
     return (np.asarray(T.R), np.asarray(T.t))
 
 
+def jax_preintegrated_to_numpy(p):
+    if p is None:
+        return None
+    out = {f: np.asarray(getattr(p, f)) for f in p._fields if f != "bias0"}
+    out["bias0"] = (np.asarray(p.bias0.gyro), np.asarray(p.bias0.acc))
+    return out
+
+
+def _bias_np(b):
+    return (np.asarray(b.gyro), np.asarray(b.acc))
+
+
+def jax_inertial_state(tr):
+    """A reference inertial tracker's IMU state, in the format of
+    ``convert.tracker_state_from_numpy``."""
+    pr = tr._prior
+    return dict(
+        calib={f: np.asarray(getattr(tr.calib, f))
+               for f in tr.calib._fields},
+        bias=_bias_np(tr.bias), cur_vel=np.asarray(tr.cur_vel),
+        gravity_w=np.asarray(tr.gravity_w),
+        kf_vel=[np.asarray(v) for v in tr.kf_vel],
+        kf_bias=[_bias_np(b) for b in tr.kf_bias],
+        kf_pre=[jax_preintegrated_to_numpy(p) for p in tr.kf_pre],
+        kf_raw=[None if r is None else tuple(np.asarray(x) for x in r)
+                for r in tr.kf_raw],
+        kf_time=list(tr.kf_time),
+        buf_kf=tuple(list(b) for b in tr._buf_kf),
+        pre_frame=jax_preintegrated_to_numpy(tr._pre_frame),
+        prev_pose_imu=_pose_np(tr._prev_pose_imu),
+        prev_vel_imu=np.asarray(tr._prev_vel_imu),
+        prior=None if pr is None else dict(
+            pose=_pose_np(pr.pose), vel=np.asarray(pr.vel),
+            bg=np.asarray(pr.bg), ba=np.asarray(pr.ba), H=np.asarray(pr.H)),
+        imu_stage=tr._imu_stage, imu_init_time=tr._imu_init_time,
+        imu_initialized=tr.imu_initialized,
+        last_frame_time=tr._last_frame_time)
+
+
 def jax_tracker_state(tr):
     """A reference MonoTracker's between-frame state as numpy, in the
-    format of ``convert.tracker_state_from_numpy``. Drains a background
-    local BA in flight first (it does not travel)."""
+    format of ``convert.tracker_state_from_numpy`` (with the IMU state of
+    an inertial tracker). Drains a background local BA in flight first (it
+    does not travel)."""
     tr._lba_drain()
     dev_stat = tr._last_kf_tracked_dev
     return dict(
@@ -204,4 +244,5 @@ def jax_tracker_state(tr):
         trajectory=[(r.timestamp, _pose_np(r.pose), r.tracked, r.state)
                     for r in tr.trajectory],
         kf_uright=(np.asarray(tr.kf_uright) if hasattr(tr, "kf_uright")
-                   else None))
+                   else None),
+        **(jax_inertial_state(tr) if hasattr(tr, "calib") else {}))
