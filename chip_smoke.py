@@ -68,9 +68,10 @@ Phases, each timed:
   8. stereo_session - ``StereoTracker(SlamConfig(loop_closing=False),
                baseline=0.11)`` at the default widths (EuRoC pinhole,
                480x752, 1024 features, 8192 map points, 256 keyframe
-               slots) on the stereo e2e sequence (corridor world, 70
-               frames, 5000 points, seed 7; render seed 31), against its
-               golden (``stereo_session_480x752.json``): init on frame 0,
+               slots) on the first 50 of the stereo e2e sequence's 70
+               frames (corridor world, 5000 points, seed 7; render seed
+               31), against its golden's prefix
+               (``stereo_session_480x752.json``): init on frame 0,
                tracked within 2 of the golden's and above 90%, metric ATE
                (no scale alignment) under 0.08 m, keyframes within 2 and
                map points within 5% of the golden's, exactly 3 kernel
@@ -83,13 +84,15 @@ Phases, each timed:
                three frames the remapped images, both feature sets and the
                refined right-image u the tracker used must equal the host
                CPU's bit for bit;
- 10. rgbd_session - ``RgbdTracker`` on the RGB-D e2e sequence (512
-               features, 6144 map points), held to that test's gates
+ 10. rgbd_session - ``RgbdTracker`` on the first 40 of the RGB-D e2e
+               sequence's 60 frames (512 features, 6144 map points), held
+               to that test's gates
                (init on frame 0, > 90% tracked, metric ATE < 0.1 m) and its
                golden's as above;
  11. fisheye_sessions - the Kannala-Brandt ``MonoTracker`` and
-               ``FisheyeStereoTracker`` on the fisheye e2e sequences
-               (512x512, 512 features), held to those tests' gates (> 80%
+               ``FisheyeStereoTracker`` on the first 40 and 35 frames of
+               the fisheye e2e sequences (60 and 50 frames; 512x512, 512
+               features), held to those tests' gates (> 80%
                tracked and ATE < 0.05 m after init; > 90% and metric ATE
                < 0.12 m) and their goldens', the fisheye-stereo step's
                three masked-match calls checked and timed; then 8 frames
@@ -100,29 +103,72 @@ Phases, each timed:
                bit-identical on the card and the host CPU;
  12. stereo_vio_session - ``StereoVioTracker(SlamConfig(loop_closing=
                False), 0.11, make_calib())`` at the default widths on the
-               stereo-inertial e2e sequence (``make_vio_sequence``, 160
-               frames, seed 4; features rendered as
-               ``test_stereo_vio_e2e.py`` renders them, 1024 of them)
-               against its golden (``stereo_vio_session_480x752.json``):
-               every frame's state and the tracked count equal to the
-               golden's, IMU init on its keyframe +-1 and the same final
-               stage, keyframes within 3 and map points within 5%, metric
-               ATE under 0.1 m and within 20 mm of the golden's; at least 3
-               kernel launches on every tracked frame; the C6 guard's
-               firings counted; a plain and a keyframe frame after IMU init
-               profiled; one pose-inertial solve, one windowed and the
-               VIBA1 full VI-BA and one ``inertial_init`` timed alone; the
-               last frame's three masked-match calls checked and timed;
+               first 104 frames of the stereo-inertial e2e sequence
+               (``make_vio_sequence``, 160 frames, seed 4; features rendered
+               as ``test_stereo_vio_e2e.py`` renders them, 1024 of them)
+               against its golden's prefix (``stereo_vio_session_480x752.
+               json``): every frame's state and the tracked count equal to
+               the golden's, IMU init on its keyframe +-1 and VIBA1 (frame
+               101) reached, keyframes within 3 and map points within 5%,
+               metric ATE under 0.1 m and within 20 mm of the golden's; at
+               least 3 kernel launches on every tracked frame; the C6
+               guard's firings counted; a plain and a keyframe frame after
+               IMU init profiled; one pose-inertial solve, one windowed and
+               the VIBA1 full VI-BA and one ``inertial_init`` timed alone;
+               the last frame's three masked-match calls checked and timed;
  13. vio_staged_session - ``VioTracker`` on ``test_staged_imu_init.py``'s
-               sequence and widths (180 frames at 10 fps, 512 features):
-               the states and tracked count as the golden's, IMU stages 1,
-               2 and 3 on the golden's keyframes +-1, metric ATE of the
-               second half under 0.2 m and within 20 mm of the golden's;
- 14. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
+               sequence and widths (the first 157 of its 180 frames at 10
+               fps, 512 features): the states and tracked count as the
+               golden's, IMU stages 1, 2 and 3 on the golden's keyframes
+               +-1, metric ATE of the second half under 0.2 m and within
+               20 mm of the golden's;
+ 14. loop_correct - the port's ``LoopCloser`` (flat 2,048-word vocabulary)
+               on ``test_loop_closing_e2e.py``'s drifted 20-keyframe loop
+               map (``tests/torch_goldens/loop_map_20kf.npz``: the JAX
+               package's build and its closer's results) with that test's
+               facade tracker: closed on the golden's keyframe with one
+               loop edge equal to the golden's (Sim3 1e-3), the golden's
+               funnel counters, keyframe poses within 1e-3 of the golden's
+               after the correction and 5e-3 after the drained global BA,
+               ATE under 0.25 m; then one full-map PCG global BA at K =
+               512, M = 32,768 (wall, busy time and launches), its cost
+               falling below 0.2 of its start and ending within 2% of the
+               same solve's on the host CPU; the phase launches no
+               masked-match kernel (its matches are dense PyTorch), and its
+               count, zeroed before the closer runs, must read 0;
+ 15. atlas_session - ``MonoTracker(SlamConfig())`` (loop closing on,
+               ``reloc_grace_frames`` 4) on ``test_atlas_merge.py``'s circle
+               (140 frames, blackout 58-67): archive and merge on the
+               golden's frames (63, 73), tracked within 2, keyframes within
+               3, points within 5% and the loops closed as the golden's,
+               ATE within 5 cm;
+ 16. reloc_session - ``MonoTracker(SlamConfig())`` on
+               ``test_relocalization.py``'s arc (120 frames, three 4-frame
+               blackouts): every blackout recovered by relocalization on
+               the golden's frame, no map archived, the counts as above;
+ 17. stereo_vio_atlas_session - this slice's main path:
+               ``StereoVioTracker(SlamConfig(), 0.11, make_calib())`` on
+               ``test_inertial_merge.py``'s circle (``vio_from_gt_
+               trajectory``, EuRoC-grade IMU noise, blackout 58-67):
+               every frame's state and inlier count equal to the
+               golden's through frame 21 (it parts on frame 22, on the
+               card as on the host CPU: ``tests/torch_vio_atlas_
+               witness.py``), archived and merged on the golden's frames
+               (63, 72), the tracked count within 2, keyframes within
+               20, map points within 15% and loops closed within 2 of
+               the golden's (the spread of the measured runs), the
+               inertial tables covering every
+               keyframe with increasing times and the IMU initialized, the
+               metric ATE of the last quarter under 0.25 m and within 5 cm
+               of the golden's; frame and stage times (``loop_closing``,
+               ``relocalize``, ``merge``, ``gba``), a plain and a keyframe
+               frame profiled, the last frame's masked-match calls checked;
+ 18. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
                the ``{"ok": true, ...}`` line last.
 
 Each path's kernel launches are counted from 0 just before it runs and
-read just after; each must launch the kernel.
+read just after; each must launch the kernel, except loop_correct, which
+must launch none.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -586,7 +632,85 @@ STAGED_RENDER = dict(n_features=512, pixel_noise=0.3, desc_bit_flips=3,
 # ATE within 20 mm of the golden's (and under the e2e tests' own gates)
 VIO_STAGE_KF_TOL = 1
 VIO_KF_TOL = 3
+# depth cuts that keep the whole script under ~800 s with the
+# loop-closing phases: each session still reaches the event it exists for
+# (stereo_vio_session: VIBA1 on frame 101; vio_staged_session: VIBA2 on
+# frame 154; the stereo family: init and tens of tracked frames) and is
+# gated against its golden's prefix
+STEREO_VIO_FRAMES = 104
+STAGED_FRAMES = 157
+# ...and the stereo family's sessions, gated as above
+STEREO_FRAMES = 50            # of 70
+RGBD_FRAMES = 40              # of 60
+FISHEYE_MONO_FRAMES = 40      # of 60
+FISHEYE_STEREO_FRAMES = 35    # of 50
 VIO_ATE_TOL_M = 0.02
+
+# the loop-closing slice (tests/make_torch_goldens.py writes their goldens
+# from these values). loop_correct: tests/test_loop_closing_e2e.py's
+# drifted 20-keyframe loop map, built by the JAX package and kept with the
+# reference closer's results (LOOP_MAP_FILE). atlas_session,
+# reloc_session and stereo_vio_atlas_session: the sequences of
+# tests/test_atlas_merge.py (a circle with a 10-frame blackout),
+# tests/test_relocalization.py (an arc with three 4-frame blackouts) and
+# tests/test_inertial_merge.py (the circle as a ground-truth trajectory
+# through vio_from_gt_trajectory, EuRoC-grade IMU), at SlamConfig()'s
+# defaults (loop closing on), rendered through the configuration's camera.
+# Blackouts are half-open frame ranges of empty feature sets.
+LOOP_MAP_FILE = "loop_map_20kf.npz"
+ATLAS_WORLD = dict(n_frames=140, n_points=6000, seed=5, motion="circle")
+ATLAS_RENDER = dict(pixel_noise=0.4, desc_bit_flips=4, dropout=0.1, seed=13)
+ATLAS_BLACKOUTS = ((58, 68),)
+ATLAS_GRACE = 4               # reloc_grace_frames, as the atlas tests set
+RELOC_WORLD = dict(n_frames=120, n_points=4000, seed=7, motion="arc")
+RELOC_RENDER = dict(pixel_noise=0.4, desc_bit_flips=4, dropout=0.1, seed=17)
+RELOC_BLACKOUTS = ((40, 44), (70, 74), (95, 99))
+VIO_ATLAS_GT = dict(n_frames=140, fps=20.0)
+VIO_ATLAS_SEQ = dict(n_points=6000, seed=5, gyro_noise=1.7e-4,
+                     acc_noise=2e-3, gyro_bias=0.002, acc_bias=0.02)
+VIO_ATLAS_RENDER = dict(pixel_noise=0.4, desc_bit_flips=4, dropout=0.1,
+                        seed=13)
+VIO_ATLAS_BLACKOUTS = ((58, 68),)
+# the atlas tests' own widths (their carried merge and relocalization
+# steps, tests/test_torch_atlas.py and test_torch_vio_atlas.py)
+ATLAS_TEST_CONFIG = dict(cam_params=(400.0, 400.0, 376.0, 240.0),
+                         image_size=(480, 752), n_features=512,
+                         max_keyframes=160, max_map_points=12288,
+                         ba_window=6, loop_closing=True)
+# the CPU tests' free-running loop session (tests/test_torch_loop_session.
+# py): test_relocalization.py's arc at 256 features, 60 frames, one blackout
+LOOP_SESSION_CONFIG = dict(ATLAS_TEST_CONFIG, n_features=256,
+                           max_map_points=6144)
+LOOP_SESSION_FRAMES = 60
+LOOP_SESSION_BLACKOUTS = ((40, 44),)
+
+
+def _blacked_out(k, blackouts):
+    return any(a <= k < b for a, b in blackouts)
+
+
+def _empty_features_numpy(n):
+    import numpy as np
+    return dict(uv=np.zeros((n, 2), np.float32),
+                response=np.zeros(n, np.float32),
+                octave=np.zeros(n, np.int32),
+                angle=np.zeros(n, np.float32),
+                desc=np.zeros((n, 8), np.uint32), valid=np.zeros(n, bool))
+
+
+def _circle_gt(n_frames, fps):
+    """tests/test_inertial_merge.py's circle: positions, R_wb quaternions
+    (wxyz, the reference's float32 so3_exp and quat_from_mat) and
+    timestamps."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch import sim
+    ts = np.arange(n_frames) / fps
+    ang = 2 * np.pi * np.arange(n_frames) / n_frames
+    pos = np.stack([3 * np.sin(ang), np.zeros(n_frames),
+                    3 * (1 - np.cos(ang))], axis=1)
+    quats = np.stack([sim.quat_from_mat_f32(sim.so3_exp(
+        np.array([0.0, np.pi / 2 - a, 0.0], np.float32))) for a in ang])
+    return pos, quats, ts
 
 
 def _sha(*arrays):
@@ -600,9 +724,17 @@ def _sha(*arrays):
     return h.hexdigest()
 
 
-def _golden(name):
+def _golden(name, frames=None):
+    """A golden run, or its first ``frames`` frames (the tracked count,
+    the final keyframe and point counts and the trajectory cut to them)."""
     with open(os.path.join(GOLDEN_DIR, name)) as fh:
-        return json.load(fh)
+        g = json.load(fh)
+    if frames is not None and frames < len(g["frames"]):
+        fr = g["frames"][:frames]
+        g = dict(g, frames=fr, trajectory_tum=g["trajectory_tum"][:frames],
+                 tracked=sum(f["state"] in ("ok", "init-done") for f in fr),
+                 n_kf=fr[-1]["n_kf"], n_mp=fr[-1]["n_mp"])
+    return g
 
 
 def _gentle_positions(T):
@@ -860,11 +992,17 @@ FISHEYE_IMAGE_FRAMES = 8
 
 
 def _config(c):
-    """A port SlamConfig from a settings dict with ``n_features``."""
+    """A port SlamConfig from a settings dict (``n_features`` for the ORB
+    budget; missing keys keep SlamConfig's defaults)."""
     from orb_slam_fusion_tpu_torch.engine import SlamConfig
     from orb_slam_fusion_tpu_torch.frontend.extractor import OrbParams
     c = dict(c)
-    return SlamConfig(orb=OrbParams(n_features=c.pop("n_features")), **c)
+    for k in ("cam_params", "image_size"):
+        if k in c:
+            c[k] = tuple(c[k])
+    if "n_features" in c:
+        c["orb"] = OrbParams(n_features=c.pop("n_features"))
+    return SlamConfig(**c)
 
 
 def _family_gates(label, out, golden, n_frames, min_tracked, ate_gate,
@@ -946,7 +1084,7 @@ def run_stereo_session(dev):
     from orb_slam_fusion_tpu_torch.engine import SlamConfig
     from orb_slam_fusion_tpu_torch.engine.stereo_tracker import StereoTracker
 
-    golden = _golden("stereo_session_480x752.json")
+    golden = _golden("stereo_session_480x752.json", STEREO_FRAMES)
     cfg = SlamConfig(loop_closing=False)
     world = sim.make_corridor_world(**STEREO_WORLD)
     r = dict(STEREO_RENDER)
@@ -966,9 +1104,9 @@ def run_stereo_session(dev):
 
     out, states, start, ate = _drive("stereo_session", tracker, world, step,
                                      make, golden, with_scale=False)
-    _family_gates("stereo_session", out, golden, STEREO_WORLD["n_frames"],
+    _family_gates("stereo_session", out, golden, len(golden["frames"]),
                   0.9, 0.08, states, start, ate, init_frame=0)
-    last = make(STEREO_WORLD["n_frames"] - 1)
+    last = make(len(golden["frames"]) - 1)
     profile_session_frames(
         tracker, last, "stereo_session",
         lambda tr, pair, ts: tr.process_stereo_features(*pair, ts))
@@ -1000,7 +1138,7 @@ def run_rgbd_session(dev):
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.engine.stereo_tracker import RgbdTracker
 
-    golden = _golden("rgbd_session_480x752.json")
+    golden = _golden("rgbd_session_480x752.json", RGBD_FRAMES)
     cfg = _config(E2E_CONFIG)
     world = sim.make_corridor_world(**RGBD_WORLD)
     r = dict(RGBD_RENDER)
@@ -1020,7 +1158,7 @@ def run_rgbd_session(dev):
 
     out, states, start, ate = _drive("rgbd_session", tracker, world, step,
                                      make, golden, with_scale=False)
-    _family_gates("rgbd_session", out, golden, RGBD_WORLD["n_frames"], 0.9,
+    _family_gates("rgbd_session", out, golden, len(golden["frames"]), 0.9,
                   0.1, states, start, ate, init_frame=0)
     return out
 
@@ -1043,7 +1181,8 @@ def run_fisheye_sessions(dev):
     cfg = _config(FISHEYE_CONFIG)
     outs = {}
 
-    golden = _golden("fisheye_mono_session_512x512.json")
+    golden = _golden("fisheye_mono_session_512x512.json",
+                     FISHEYE_MONO_FRAMES)
     world = sim.make_corridor_world(**FISHEYE_MONO_WORLD)
     r = dict(FISHEYE_MONO_RENDER)
     nf = r.pop("n_features")
@@ -1059,11 +1198,12 @@ def run_fisheye_sessions(dev):
                                      tracker.process_features, make_mono,
                                      golden, with_scale=True)
     _family_gates("fisheye_mono", out, golden,
-                  FISHEYE_MONO_WORLD["n_frames"], 0.8, 0.05, states, start,
+                  len(golden["frames"]), 0.8, 0.05, states, start,
                   ate, init_frame=golden["init_frame"])
     outs["fisheye_mono"] = out
 
-    golden = _golden("fisheye_stereo_session_512x512.json")
+    golden = _golden("fisheye_stereo_session_512x512.json",
+                     FISHEYE_STEREO_FRAMES)
     world = sim.make_corridor_world(**FISHEYE_STEREO_WORLD)
     r = dict(FISHEYE_STEREO_RENDER)
     nf = r.pop("n_features")
@@ -1085,11 +1225,11 @@ def run_fisheye_sessions(dev):
                                      step, make_pair, golden,
                                      with_scale=False)
     _family_gates("fisheye_stereo", out, golden,
-                  FISHEYE_STEREO_WORLD["n_frames"], 0.9, 0.12, states, start,
+                  len(golden["frames"]), 0.9, 0.12, states, start,
                   ate, init_frame=0)
     out["match_calls"] = _session_calls(
         "fisheye_stereo", tracker,
-        make_pair(FISHEYE_STEREO_WORLD["n_frames"] - 1)[0][0])
+        make_pair(len(golden["frames"]) - 1)[0][0])
     outs["fisheye_stereo"] = out
 
     # process_image on KB8 images: the 512x512 pyramid, extraction and
@@ -1287,7 +1427,7 @@ def _drive_vio(label, tracker, seq, make, step, golden, ate_from):
                          n_kf=int(tracker.map.n_kf)))
         print(f"{label} imu " + json.dumps(dict(
             frame=len(rows) - 1, stage=rows[-1]["imu_stage"], bias=b,
-            golden=[g["imu_stage"], g["bias"]])), flush=True)
+            golden=[g["imu_stage"], g.get("bias")])), flush=True)
         return rec
 
     rec = _SolverCalls(tracker)
@@ -1316,7 +1456,7 @@ def run_stereo_vio_session(dev):
     from orb_slam_fusion_tpu_torch.engine import SlamConfig, StereoVioTracker
     from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
 
-    golden = _golden("stereo_vio_session_480x752.json")
+    golden = _golden("stereo_vio_session_480x752.json", STEREO_VIO_FRAMES)
     cfg = SlamConfig(loop_closing=False)
     seq = sim.make_vio_sequence(**VIO_SEQ)
     r = dict(VIO_RENDER)
@@ -1373,7 +1513,7 @@ def run_vio_staged_session(dev):
     from orb_slam_fusion_tpu_torch.engine import VioTracker
     from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
 
-    golden = _golden("vio_staged_session_480x752.json")
+    golden = _golden("vio_staged_session_480x752.json", STAGED_FRAMES)
     cfg = _config(STAGED_CONFIG)
     seq = sim.make_vio_sequence(**STAGED_SEQ)
     r = dict(STAGED_RENDER)
@@ -1493,6 +1633,414 @@ def run_stereo_images(dev):
                frames_checked=checked, rectified_cam=list(cam),
                baseline_m=baseline)
     print("stereo_images " + json.dumps(out), flush=True)
+    return out
+
+
+# -- the loop-closing slice ---------------------------------------------------
+
+FEATURE_FIELDS = ("uv", "response", "octave", "angle", "desc", "valid")
+LOOP_POSE_TOL_M = 1e-3        # corrected keyframes against the golden's
+LOOP_GBA_POSE_TOL_M = 5e-3    # ... and after the drained global BA
+LOOP_ATE_GATE_M = 0.25        # tests/test_loop_closing_e2e.py's gate
+GBA_SHAPE = dict(K=512, nf=48, M=32768, spacing=0.05, n_fixed=1)
+GBA_COST_RTOL = 0.02          # the solve's final cost, card against CPU
+ATLAS_KF_TOL = 3
+ATLAS_TRACKED_TOL = 2
+ATLAS_ATE_TOL_M = 0.05        # metric/with-scale ATE against the golden's
+# the main path follows its golden exactly through frame 21 and parts on
+# frame 22, on the card and on the host CPU alike (PERF.md §6,
+# tests/torch_vio_atlas_witness.py); after it the keyframe, point and loop
+# counts are held to the spread of those readings (at the end 102-113
+# keyframes against 117, points up to 9.4% over, 2 loops against 4)
+VIO_ATLAS_EXACT_FRAMES = 22
+VIO_ATLAS_KF_TOL = 20
+VIO_ATLAS_MP_RTOL = 0.15
+VIO_ATLAS_LOOPS_TOL = 2
+
+
+def _feats_sha(*arrays_dicts):
+    return _sha(*(a[n] for a in arrays_dicts for n in FEATURE_FIELDS))
+
+
+def _fixtures():
+    """tests/torch_fixtures.py (numpy and the port only)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_fixtures
+    return torch_fixtures
+
+
+def run_loop_correct(dev):
+    """The port's LoopCloser on the drifted loop map against the
+    reference's results, then one full-map PCG global BA at K = 512,
+    M = 32,768 (phase loop_correct). The closer's matches are dense
+    PyTorch, so the phase must launch no masked-match kernel."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.io import ate_rmse
+    from orb_slam_fusion_tpu_torch.utils.timing import STAGES
+
+    fx = _fixtures()
+    tracker, closer, z = fx.load_loop_map(
+        os.path.join(GOLDEN_DIR, LOOP_MAP_FILE), dev)
+    STAGES.reset()
+    STAGES.enable()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mm.launches = 0                      # counts start here ...
+    res = fx.close_loop_map(tracker, closer, z)
+    launches = mm.launches               # ... and are read here
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    STAGES.disable()
+    K = int(tracker.map.n_kf)
+    golden_stats = json.loads(str(z["stats"]))
+    centers = np.stack([-res["R"][k].T @ res["t"][k] for k in range(K)])
+    gtc = np.stack([-z["gt_R"][k].T @ z["gt_t"][k] for k in range(K)])
+    ate = float(ate_rmse(centers, gtc, with_scale=False))
+    out = dict(closed_at=res["closed_at"],
+               golden_closed_at=int(z["closed_at"]), edges=res["edges"],
+               golden_edge=z["edge"].tolist(), stats=res["stats"],
+               golden_stats=golden_stats, ate_m=ate, wall_ms=wall,
+               launches=launches)
+    if launches:
+        raise RuntimeError(f"loop_correct launched the masked-match kernel "
+                           f"{launches} times")
+    if res["closed_at"] != int(z["closed_at"]) or len(res["edges"]) != 1 \
+            or res["edge"] != z["edge"].tolist():
+        raise RuntimeError(f"loop_correct: closed at {res['closed_at']} with "
+                           f"edges {res['edges']}, the golden at "
+                           f"{int(z['closed_at'])} with {z['edge'].tolist()}")
+    for key in ("queries", "candidates", "consistent", "closed"):
+        if res["stats"][key] != golden_stats[key]:
+            raise RuntimeError(f"loop_correct: stats {res['stats']} against "
+                               f"the golden's {golden_stats}")
+    for got, want in zip(res["edge_S"], (z["edge_s"], z["edge_R"],
+                                         z["edge_t"])):
+        if np.abs(got - want).max() > 1e-3:
+            raise RuntimeError(f"loop_correct: the loop edge's Sim3 parts "
+                               f"from the golden's by "
+                               f"{np.abs(got - want).max()}")
+    d_corr = max(np.abs(res["corrected_R"] - z["corrected_R"]).max(),
+                 np.abs(res["corrected_t"] - z["corrected_t"]).max())
+    d_final = max(np.abs(res["R"] - z["final_R"]).max(),
+                  np.abs(res["t"] - z["final_t"]).max())
+    out.update(corrected_vs_golden=float(d_corr),
+               final_vs_golden=float(d_final))
+    if d_corr > LOOP_POSE_TOL_M or d_final > LOOP_GBA_POSE_TOL_M:
+        raise RuntimeError(f"loop_correct: keyframe poses part from the "
+                           f"golden's by {d_corr} after the correction and "
+                           f"{d_final} after the global BA")
+    if not ate < LOOP_ATE_GATE_M:
+        raise RuntimeError(f"loop_correct: post-correction ATE {ate} m")
+    out["stage_ms"] = {k: [STAGES.count[k], STAGES.total[k] * 1e3
+                           / STAGES.count[k]] for k in STAGES.total}
+    print("loop_correct " + json.dumps(out), flush=True)
+    out["global_ba"] = run_global_ba(dev)
+    return out
+
+
+def run_global_ba(dev):
+    """One full-map PCG global BA (ChunkedLM, pose_stride > 0, 2 + 3 LM
+    iterations) at K = 512, M = 32,768 on the card: wall ms, then under
+    the profiler busy ms and launches; the cost must fall below 0.2 of
+    its start and end within GBA_COST_RTOL of the same solve's on the
+    host CPU."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch.solver import ba
+
+    fx = _fixtures()
+    a = fx.ba_problem_arrays(**GBA_SHAPE)
+    nf = GBA_SHAPE["nf"]
+    prob = fx.ba_problem(a, dev)
+
+    def solve():
+        lm = ba.ChunkedLM(prob, "pinhole", 2, 3, chunk=2, pose_stride=nf)
+        c0 = float(lm.cost)
+        while not lm.step():
+            pass
+        return lm, c0
+    solve()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm, c0 = solve()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    c1 = float(ba.lm_cost(lm.poses, lm.points, lm.inlier, prob, "pinhole"))
+    prof = profile_stages({"global_ba full map": solve}, warm=False,
+                          cpu_ops=False)["global_ba full map"]
+    if not (np.isfinite(c1) and c1 < 0.2 * c0):
+        raise RuntimeError(f"global BA cost {c0} -> {c1}")
+    # the same solve on the host CPU: the costs agree (the problem fixes
+    # one pose, so its scale is a free gauge and the poses themselves may
+    # part along it; the cost does not see the gauge)
+    prob_cpu = fx.ba_problem(a, "cpu")
+    lm_cpu = ba.ChunkedLM(prob_cpu, "pinhole", 2, 3, chunk=2, pose_stride=nf)
+    while not lm_cpu.step():
+        pass
+    c1_cpu = float(ba.lm_cost(lm_cpu.poses, lm_cpu.points, lm_cpu.inlier,
+                              prob_cpu, "pinhole"))
+    rel = abs(c1 - c1_cpu) / c1_cpu
+    out = dict(K=GBA_SHAPE["K"], M=GBA_SHAPE["M"], F=int(prob.valid.shape[0]),
+               cost_start=c0, cost_end=c1, cost_end_cpu=c1_cpu,
+               cost_rel_vs_cpu=rel, wall_ms=wall,
+               device_busy_ms=prof["device_busy_ms"], kernels=prof["kernels"])
+    print("global_ba " + json.dumps(out), flush=True)
+    if rel > GBA_COST_RTOL:
+        raise RuntimeError(f"global BA ends at cost {c1} on the card, {c1_cpu}"
+                           f" on the host CPU")
+    return out
+
+
+def _loop_events(frames):
+    """(frame of the first archive, frame of the first merge) of a
+    session's per-frame archive counts."""
+    arch = [f["archived"] for f in frames]
+    first = next((k for k, n in enumerate(arch) if n > 0), None)
+    merge = next((k for k in range(1, len(arch)) if arch[k] < arch[k - 1]),
+                 None)
+    return first, merge
+
+
+def _loop_recorder(label, tracker, golden, step):
+    """``step`` wrapped to record, after each frame, the archived-map
+    count, the database rows and the loops closed, printed where the
+    archive or loop count differs from the golden's. Returns (rows, the
+    wrapped step)."""
+    rows = []
+
+    def step_(inputs, ts):
+        rec = step(inputs, ts)
+        g = golden["frames"][len(rows)]
+        rows.append(dict(archived=len(tracker.atlas),
+                         present=int(tracker.loop_closer.db.present.sum()),
+                         closed=int(tracker.loop_closer.num_closed)))
+        if rows[-1]["archived"] != g["archived"] or (
+                rows[-1]["closed"] != g["closed"]):
+            print(f"{label} atlas " + json.dumps(dict(
+                frame=len(rows) - 1, **rows[-1], golden=[
+                    g["archived"], g["present"], g["closed"]])), flush=True)
+        return rec
+    return rows, step_
+
+
+def _drive_loop(label, tracker, world, step, make, golden, with_scale):
+    """``_drive`` with each frame's archive count and the loop closer's
+    counters beside the golden's."""
+    rows, step_ = _loop_recorder(label, tracker, golden, step)
+    return _drive(label, tracker, world, step_, make, golden,
+                  with_scale) + (rows,)
+
+
+def _loop_gates(label, out, golden, states, rows, kf_tol=ATLAS_KF_TOL,
+                mp_rtol=SESSION_MP_RTOL, loops_tol=0):
+    """The atlas sessions' gates: the first archive and the merge on the
+    golden's frames, the tracked count, keyframes within ``kf_tol``, map
+    points within ``mp_rtol`` and loops closed within ``loops_tol`` of
+    the golden's."""
+    got, want = _loop_events(rows), _loop_events(golden["frames"])
+    out.update(archive_merge_frames=got, golden_archive_merge_frames=want,
+               loops_closed=rows[-1]["closed"],
+               golden_loops_closed=golden["frames"][-1]["closed"])
+    if got != want:
+        raise RuntimeError(f"{label}: archived/merged on frames {got}, the "
+                           f"golden on {want}")
+    if abs(out["tracked"] - golden["tracked"]) > ATLAS_TRACKED_TOL:
+        raise RuntimeError(f"{label} tracked {out['tracked']}, the golden "
+                           f"{golden['tracked']}")
+    if abs(out["n_kf"] - golden["n_kf"]) > kf_tol:
+        raise RuntimeError(f"{label} ends with {out['n_kf']} keyframes, the "
+                           f"golden {golden['n_kf']}")
+    if abs(out["n_mp"] - golden["n_mp"]) > mp_rtol * golden["n_mp"]:
+        raise RuntimeError(f"{label} ends with {out['n_mp']} map points, the "
+                           f"golden {golden['n_mp']}")
+    if abs(out["loops_closed"] - out["golden_loops_closed"]) > loops_tol:
+        raise RuntimeError(f"{label} closed {out['loops_closed']} loops, the "
+                           f"golden {out['golden_loops_closed']}")
+    from orb_slam_fusion_tpu_torch.engine.step import (
+        MATCH_LAUNCHES_PER_FRAME)
+    if out["launches_tracked"] < MATCH_LAUNCHES_PER_FRAME * out["ok_frames"]:
+        raise RuntimeError(f"{label}: {out['launches_tracked']} masked-match "
+                           f"launches over {out['ok_frames']} tracked frames")
+
+
+def _mono_loop_make(world, cfg, render, blackouts, dev):
+    from orb_slam_fusion_tpu_torch import sim
+
+    def make(k):
+        if _blacked_out(k, blackouts):
+            a = _empty_features_numpy(cfg.orb.n_features)
+        else:
+            a = sim.render_frame_numpy(world, k, cfg.cam_params,
+                                       cfg.image_size, cfg.orb.n_features,
+                                       **render)
+        return (sim.features_on(a, dev), float(world.timestamps[k]),
+                _feats_sha(a))
+    return make
+
+
+def run_atlas_session(dev):
+    """MonoTracker(SlamConfig()) on test_atlas_merge.py's circle: the
+    blackout loses the map, the grace window archives it, the revisit
+    merges it back (phase atlas_session)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
+
+    golden = _golden("atlas_session_480x752.json")
+    cfg = SlamConfig()
+    world = sim.make_corridor_world(**ATLAS_WORLD)
+    tracker = MonoTracker(cfg, device=dev)
+    tracker.reloc_grace_frames = ATLAS_GRACE
+    make = _mono_loop_make(world, cfg, ATLAS_RENDER, ATLAS_BLACKOUTS, dev)
+    out, states, start, ate, rows = _drive_loop(
+        "atlas_session", tracker, world, tracker.process_features, make,
+        golden, with_scale=True)
+    _loop_gates("atlas_session", out, golden, states, rows)
+    if len(tracker.atlas) != golden["archived"]:
+        raise RuntimeError("atlas_session ends with another atlas")
+    if abs(ate - golden["ate_m"]) > ATLAS_ATE_TOL_M:
+        raise RuntimeError(f"atlas_session ATE {ate} m, the golden's "
+                           f"{golden['ate_m']} m")
+    print("atlas_session gates passed " + json.dumps(
+        {k: out[k] for k in ("tracked", "ate_m", "golden_ate_m",
+                             "archive_merge_frames", "loops_closed",
+                             "golden_loops_closed", "n_kf", "n_mp")}),
+          flush=True)
+    return out
+
+
+def run_reloc_session(dev):
+    """MonoTracker(SlamConfig()) on test_relocalization.py's arc with
+    three blackouts: each recovers by relocalization on the golden's
+    frame, and no map is archived (phase reloc_session)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
+
+    golden = _golden("reloc_session_480x752.json")
+    cfg = SlamConfig()
+    world = sim.make_corridor_world(**RELOC_WORLD)
+    tracker = MonoTracker(cfg, device=dev)
+    make = _mono_loop_make(world, cfg, RELOC_RENDER, RELOC_BLACKOUTS, dev)
+    out, states, start, ate, rows = _drive_loop(
+        "reloc_session", tracker, world, tracker.process_features, make,
+        golden, with_scale=True)
+    _loop_gates("reloc_session", out, golden, states, rows)
+
+    def recoveries(st):
+        return [k for k in range(1, len(st)) if st[k] == "ok"
+                and st[k - 1] == "reloc-fail"]
+    got = recoveries(states)
+    want = recoveries([f["state"] for f in golden["frames"]])
+    out.update(recovered_on=got, golden_recovered_on=want)
+    if got != want or len(got) != len(RELOC_BLACKOUTS) or len(tracker.atlas):
+        raise RuntimeError(f"reloc_session recovered on {got} (atlas "
+                           f"{len(tracker.atlas)}), the golden on {want}")
+    print("reloc_session gates passed " + json.dumps(
+        {k: out[k] for k in ("tracked", "recovered_on", "n_kf", "n_mp",
+                             "ate_m", "golden_ate_m")}), flush=True)
+    return out
+
+
+def vio_atlas_session(dev):
+    """This slice's main path as a user builds it: StereoVioTracker(
+    SlamConfig(), 0.11, make_calib()) with ``reloc_grace_frames`` 4, and
+    test_inertial_merge.py's circle (vio_from_gt_trajectory, EuRoC-grade
+    IMU noise, blackout 58-67). Returns (tracker, sequence, make(k) ->
+    (inputs, timestamp, input hash), step(inputs, timestamp));
+    ``make.numpy(k)`` gives frame k as numpy (the feature pair, the IMU
+    samples, the timestamp)."""
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.engine import SlamConfig, StereoVioTracker
+    from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
+
+    cfg = SlamConfig()
+    seq = sim.vio_from_gt_trajectory(
+        *_circle_gt(VIO_ATLAS_GT["n_frames"], VIO_ATLAS_GT["fps"]),
+        **VIO_ATLAS_SEQ)
+    world = seq.world
+    tracker = StereoVioTracker(cfg, VIO_BASELINE, make_calib(device=dev),
+                               device=dev)
+    tracker.reloc_grace_frames = ATLAS_GRACE
+    nf = cfg.orb.n_features
+
+    def make_numpy(k):
+        if _blacked_out(k, VIO_ATLAS_BLACKOUTS):
+            pair = (_empty_features_numpy(nf), _empty_features_numpy(nf))
+        else:
+            pair = sim.render_stereo_frame_numpy(
+                world, k, cfg.cam_params, cfg.image_size, nf, VIO_BASELINE,
+                **VIO_ATLAS_RENDER)
+        return pair, _imu_of(seq, k), float(world.timestamps[k])
+
+    def make(k):
+        pair, imu, ts = make_numpy(k)
+        return ((tuple(sim.features_on(a, dev) for a in pair), imu), ts,
+                _feats_sha(*pair) + _sha(*imu))
+
+    def step(inputs, ts):
+        return tracker.process_stereo_imu(*inputs[0], ts, *inputs[1])
+    make.numpy = make_numpy
+    return tracker, seq, make, step
+
+
+def run_stereo_vio_atlas_session(dev):
+    """This slice's main path: StereoVioTracker(SlamConfig(), 0.11,
+    make_calib()) on test_inertial_merge.py's circle through the blackout,
+    the archive, the inertial merge and the loops closed after it (phase
+    stereo_vio_atlas_session)."""
+    import numpy as np
+
+    golden = _golden("stereo_vio_atlas_session_480x752.json")
+    tracker, seq, make, step = vio_atlas_session(dev)
+    rows, step_ = _loop_recorder("stereo_vio_atlas_session", tracker,
+                                 golden, step)
+    out, states, vio_rows, rec, before_last = _drive_vio(
+        "stereo_vio_atlas_session", tracker, seq, make, step_, golden,
+        ate_from=int(VIO_ATLAS_GT["n_frames"] * 0.75))
+    first = out["first_frame_differing_from_golden"]
+    if first is not None and first < VIO_ATLAS_EXACT_FRAMES:
+        raise RuntimeError(f"stereo_vio_atlas_session parts from its golden "
+                           f"on frame {first}")
+    _loop_gates("stereo_vio_atlas_session", out, golden, states, rows,
+                kf_tol=VIO_ATLAS_KF_TOL, mp_rtol=VIO_ATLAS_MP_RTOL,
+                loops_tol=VIO_ATLAS_LOOPS_TOL)
+    n_kf = int(tracker.map.n_kf)
+    tables = [len(tracker.kf_vel), len(tracker.kf_bias),
+              len(tracker.kf_pre), len(tracker.kf_time),
+              len(tracker.kf_raw)]
+    increasing = bool(np.all(np.diff(np.asarray(tracker.kf_time)) > 0))
+    out.update(inertial_tables=tables, kf_time_increasing=increasing,
+               imu_initialized=bool(tracker.imu_initialized),
+               ate_tail_m=out.pop("metric_ate_m"),
+               golden_ate_tail_m=golden["ate_tail_m"])
+    out.pop("golden_metric_ate_m")
+    if tables != [n_kf] * 5 or not increasing or not tracker.imu_initialized:
+        raise RuntimeError(f"stereo_vio_atlas_session: inertial tables "
+                           f"{tables} for {n_kf} keyframes, times increasing "
+                           f"{increasing}, IMU initialized "
+                           f"{tracker.imu_initialized}")
+    if not (out["ate_tail_m"] < LOOP_ATE_GATE_M and abs(
+            out["ate_tail_m"] - golden["ate_tail_m"]) < ATLAS_ATE_TOL_M):
+        raise RuntimeError(f"stereo_vio_atlas_session metric ATE after the "
+                           f"merge {out['ate_tail_m']} m, the golden's "
+                           f"{golden['ate_tail_m']} m")
+    print("stereo_vio_atlas_session gates passed " + json.dumps(
+        {k: out[k] for k in ("tracked", "ate_tail_m", "golden_ate_tail_m",
+                             "archive_merge_frames", "loops_closed",
+                             "golden_loops_closed", "n_kf", "n_mp",
+                             "inertial_tables", "so3_guard_fired")}),
+          flush=True)
+    last = make(len(golden["frames"]) - 1)
+    profile_session_frames(
+        before_last, last, "stereo_vio_atlas_session",
+        lambda tr, inputs, ts: tr.process_stereo_imu(*inputs[0], ts,
+                                                     *inputs[1]),
+        cpu_ops=False)
+    out["match_calls"] = _session_calls("stereo_vio_atlas_session", tracker,
+                                        last[0][0][0])
     return out
 
 
@@ -1652,13 +2200,29 @@ def main():
     _phase("vio_staged_session", t0)
 
     t0 = time.perf_counter()
+    loop = run_loop_correct(dev)
+    _phase("loop_correct", t0)
+
+    t0 = time.perf_counter()
+    atlas = run_atlas_session(dev)
+    _phase("atlas_session", t0)
+
+    t0 = time.perf_counter()
+    reloc = run_reloc_session(dev)
+    _phase("reloc_session", t0)
+
+    t0 = time.perf_counter()
+    vio_atlas = run_stereo_vio_atlas_session(dev)
+    _phase("stereo_vio_atlas_session", t0)
+
+    t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
              stages.items()}
     print("stage ms (mean over the 16-frame run; mapping and local_ba per "
           "keyframe event): " + json.dumps(table), flush=True)
     print("stage ms (all): " + json.dumps(stages), flush=True)
-    # this slice's main path is the stereo-inertial session
-    report["launches"] = stereo_vio["launches"]
+    # this slice's main path is the stereo-inertial atlas session
+    report["launches"] = vio_atlas["launches"]
     report["launches_by_path"] = {
         "bench_frames": launches["masked_match"],
         "session": session["launches"],
@@ -1670,17 +2234,25 @@ def main():
         "fisheye_stereo": fisheye["fisheye_stereo"]["launches"],
         "fisheye_images": fisheye["fisheye_images"]["launches"],
         "stereo_vio_session": stereo_vio["launches"],
-        "vio_staged_session": staged["launches"]}
+        "vio_staged_session": staged["launches"],
+        "loop_correct": loop["launches"],
+        "atlas_session": atlas["launches"],
+        "reloc_session": reloc["launches"],
+        "stereo_vio_atlas_session": vio_atlas["launches"]}
     report["tracked_frames_by_path"] = {
         "session": session["ok_frames"], "stereo_session":
         stereo["ok_frames"], "rgbd_session": rgbd["ok_frames"],
         "fisheye_mono": fisheye["fisheye_mono"]["ok_frames"],
         "fisheye_stereo": fisheye["fisheye_stereo"]["ok_frames"],
         "stereo_vio_session": stereo_vio["ok_frames"],
-        "vio_staged_session": staged["ok_frames"]}
+        "vio_staged_session": staged["ok_frames"],
+        "atlas_session": atlas["ok_frames"],
+        "reloc_session": reloc["ok_frames"],
+        "stereo_vio_atlas_session": vio_atlas["ok_frames"]}
     report["stereo_session_calls"] = stereo["match_calls"]
     report["fisheye_stereo_calls"] = fisheye["fisheye_stereo"]["match_calls"]
     report["stereo_vio_session_calls"] = stereo_vio["match_calls"]
+    report["stereo_vio_atlas_session_calls"] = vio_atlas["match_calls"]
     report["launches_per_bench_frame"] = launches["masked_match"] / FRAMES
     report["session_launches_per_tracked_frame"] = (
         session["launches_tracked"] / max(session["ok_frames"], 1))

@@ -230,7 +230,12 @@ def triangulate_refine(X0: torch.Tensor, ray1: torch.Tensor,
         r = torch.cat([r1, r2], dim=-1)                    # (...,4)
         H = J.transpose(-1, -2) @ J + 1e-9 * eye3
         g = _mv(J.transpose(-1, -2), r)
-        X = X - torch.linalg.solve(H, g.unsqueeze(-1)).squeeze(-1)
+        # solve_ex: a singular system (a padded, all-zero ray pair) gives
+        # NaN rows where the reference's jnp solve does, instead of raising
+        dX, info = torch.linalg.solve_ex(H, g.unsqueeze(-1))
+        dX = torch.where((info == 0)[..., None, None], dX,
+                         torch.full_like(dX, float("nan")))
+        X = X - dX.squeeze(-1)
     return X
 
 

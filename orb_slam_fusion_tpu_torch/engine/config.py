@@ -2,9 +2,9 @@
 
 Counterpart of ``orb_slam_fusion_tpu/engine/config.py``: the same fields
 and defaults, so a configuration written for the reference reads the same
-here. The port runs a subset of them: ``MonoTracker`` refuses
-``loop_closing=True`` (ROADMAP A13) and ``mesh_devices > 0`` (A15) rather
-than ignore them; ``cam_model`` is ``"pinhole"`` or ``"kannala_brandt8"``.
+here, ``SlamConfig()`` as is (loop closing on) included. ``MonoTracker``
+refuses ``mesh_devices > 0`` (ROADMAP A15) rather than ignore it;
+``cam_model`` is ``"pinhole"`` or ``"kannala_brandt8"``.
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ each feature's right-image u (-1 for a monocular observation).
 RGB-D turns each feature's depth into a virtual right-image u =
 u_L - bf/z (Frame::ComputeStereoFromRGBD); the fisheye rig triangulates
 its left/right matches through the extrinsics and feeds that depth the
-same way. Map merging (``_on_maps_merged``) needs the atlas, which is not
-ported yet (ROADMAP A13).
+same way. After a map merge (``_on_maps_merged``) the active map's
+right-u rows move to their welded rows and the archived map's rows fall
+back to monocular observations, as in the reference.
 """
 
 from __future__ import annotations
@@ -128,6 +129,8 @@ class StereoTracker(MonoTracker):
         self._last_kf_tracked_dev = None
         self.frames_since_kf = 0
         self.state = TrackState.OK
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(0, feats.desc, feats.valid)
         return FrameRecord(timestamp, pose0, self.last_kf_tracked,
                            "init-done")
 
@@ -159,9 +162,16 @@ class StereoTracker(MonoTracker):
                             device=self.device)], dim=0)
 
     def _on_maps_merged(self, arch, kf_off: int, S_new_to_old):
-        raise NotImplementedError(
-            "map merging needs the atlas and the loop closer, which are not "
-            "ported yet (ROADMAP A13)")
+        """Shift the right-u rows to the welded index space; the archived
+        map's rows become monocular (-1): the archive keeps no u_right."""
+        super()._on_maps_merged(arch, kf_off, S_new_to_old)
+        K = self.map.max_kf
+        F = self.kf_uright.shape[1]
+        n_new = int(self.map.n_kf) - kf_off
+        merged = torch.full((K, F), -1.0, dtype=torch.float32,
+                            device=self.device)
+        merged[kf_off:kf_off + n_new] = self.kf_uright[:n_new]
+        self.kf_uright = merged
 
     # -- keyframe insertion ------------------------------------------------
 

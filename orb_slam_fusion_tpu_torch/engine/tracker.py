@@ -13,11 +13,14 @@ Cameras: pinhole (with radial-tangential keypoint undistortion for a
 non-zero ``distortion``) and Kannala-Brandt 8. The stereo, RGB-D and
 fisheye-stereo sessions subclass this one (``engine/stereo_tracker.py``).
 
-Not ported yet, and refused rather than ignored: loop closing,
-relocalization and map merging (``loop_closing=True``, ROADMAP A13) and
-the distributed paths (``mesh_devices > 0``, A15). Without a loop closer
-the reference's ``_try_relocalize`` returns False, and so does the
-port's.
+With ``loop_closing=True`` (the default) the session owns a loop closer
+(``engine/loop_closing.py``: BoW database, loop detection and correction,
+the background global BA it ticks once per frame), relocalizes a lost
+frame against that database by PnP, archives its map into the atlas when
+the grace window runs out, and merges the active map back into an
+archived one that a keyframe recognizes (``_try_merge_maps``). Not ported
+yet, and refused rather than ignored: the distributed paths
+(``mesh_devices > 0``, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from .. import cameras, lie, resolve_device, two_view
 from ..frontend import extractor, matcher
 from ..map import map_state as ms
 from ..solver import ba as ba_mod
+from ..map.atlas import Atlas, merge_maps
 from ..solver.local_ba import stereo_args
 from ..utils import masked_set, prng
 from ..utils.timing import STAGES, stage
@@ -125,7 +129,8 @@ class ChunkedLocalBA:
 
 
 class MonoTracker:
-    """Host-side monocular SLAM session (single map, no loop closing)."""
+    """Host-side monocular SLAM session: tracking, local mapping, loop
+    closing, relocalization and the multi-map atlas."""
 
     # covisible local-BA window for monocular sessions (reference visual
     # LocalBundleAdjustment, optimizer.cc:1053); metric subclasses
@@ -133,11 +138,6 @@ class MonoTracker:
     ba_covisible_window = True
 
     def __init__(self, config: SlamConfig = SlamConfig(), device=None):
-        if config.loop_closing:
-            raise NotImplementedError(
-                "loop closing, relocalization and map merging are not "
-                "ported yet (ROADMAP A13): pass "
-                "SlamConfig(loop_closing=False)")
         if getattr(config, "mesh_devices", 0):
             raise NotImplementedError(
                 "distributed tracking and BA (mesh_devices > 0) are not "
@@ -171,15 +171,36 @@ class MonoTracker:
         self._traj_rel: list = []
         self._cur_obs = None
         self._pending_lba: Optional[ChunkedLocalBA] = None
+        self.loop_closer = self._new_loop_closer()
         self.lost_since = -10 ** 9
-        self.reloc_grace_frames = 40
+        self.reloc_grace_frames = 40  # ~2 s at 20 fps
+        # multi-map atlas (reference Atlas + MergeLocal); needs the BoW
+        # database of the loop closer
+        self.atlas = Atlas()
+        self.enable_atlas = config.loop_closing
+        self._merge_cooldown = 0
+
+    def _new_loop_closer(self):
+        if not self.cfg.loop_closing:
+            return None
+        from .loop_closing import LoopCloser
+        return LoopCloser(self.cfg, self.cfg.max_keyframes,
+                          self.cfg.vocab_words, device=self.device)
 
     def reset_map(self):
-        """Start a fresh map (reference Tracking::CreateMapInAtlas; the
-        atlas archive needs the loop closer's database, ROADMAP A13)."""
+        """Archive the current map into the atlas and start a fresh one
+        (reference Tracking::CreateMapInAtlas)."""
+        # finish in-flight background solves so the archive is refined
         self._lba_drain()
+        if self.loop_closer is not None:
+            self.loop_closer.gba_drain(self)
         self._freeze_trajectory()
         cfg = self.cfg
+        if (self.enable_atlas and self.loop_closer is not None
+                and int(self.map.n_kf) >= 5):
+            self.atlas.archive(self.map, self.loop_closer.db.bow,
+                               self.loop_closer.db.present,
+                               inertial=self._inertial_archive_snapshot())
         self.map = ms.make_empty_map(
             cfg.max_keyframes, cfg.max_map_points, cfg.orb.n_features,
             device=self.device)
@@ -190,6 +211,8 @@ class MonoTracker:
         self.last_kf_tracked = 0
         self._last_kf_tracked_dev = None
         self.frames_since_kf = 0
+        if self.loop_closer is not None:
+            self.loop_closer = self._new_loop_closer()
 
     # -- public API --------------------------------------------------------
 
@@ -372,6 +395,10 @@ class MonoTracker:
         cfg = self.cfg
         # advance in-flight background work by one chunk BEFORE the frame
         self._lba_tick()
+        if (self.loop_closer is not None
+                and self.loop_closer.pending_gba is not None):
+            with stage("gba"):
+                self.loop_closer.gba_tick(self)
 
         pred_pose = lie.se3_compose(self.velocity, self.cur_pose)
         # the step updates the counters in place: pass copies so the
@@ -505,6 +532,9 @@ class MonoTracker:
                                        new_max_mp=self.map.max_mp * 2)
 
     def _compact_map_points(self) -> None:
+        # point rows move under an in-flight GBA snapshot: abort it
+        if self.loop_closer is not None:
+            self.loop_closer.pending_gba = None
         self.map, old_to_new = ms.compact_map_points(self.map)
         if self._cur_obs is not None:
             o = self._cur_obs
@@ -530,6 +560,8 @@ class MonoTracker:
         self.map = new_map
         if self.last_kf_id >= 0:
             self.last_kf_id = int(o2n[self.last_kf_id])
+        if self.loop_closer is not None:
+            self.loop_closer.on_kf_remap(o2n, order.cpu().numpy())
         self._on_kf_remap(o2n, order.cpu().numpy())
 
     def _tri_covisible(self) -> int:
@@ -541,11 +573,61 @@ class MonoTracker:
 
     def _on_kf_grow(self, new_max_kf: int) -> None:
         """Hook: subclasses grow their per-keyframe side tables."""
+        if self.loop_closer is not None:
+            self.loop_closer.on_kf_grow(new_max_kf)
 
     def _try_relocalize(self, feats) -> bool:
-        """Relocalization needs the loop closer's keyframe database
-        (ROADMAP A13); without one the reference returns False too
-        (tracker.py:709)."""
+        """Relocalization against the active map (reference
+        Tracking::Relocalization): BoW candidates, information-weighted
+        PnP RANSAC, then the guided projection search at the coarse pose
+        with an inlier quorum before the pose is accepted."""
+        if self.loop_closer is None or int(self.map.n_kf) < 2:
+            return False
+        with stage("relocalize"):
+            return self._relocalize(feats)
+
+    def _relocalize(self, feats) -> bool:
+        from ..solver.pnp import pnp_ransac
+        cfg = self.cfg
+        db = self.loop_closer.db
+        q = db.compute_bow(feats.desc, feats.valid)
+        ids, _ = db.query(q, torch.zeros(self.map.max_kf, dtype=torch.bool,
+                                         device=self.device), top_k=3)
+        inv_s2_all = self.inv_s2[torch.clamp(
+            feats.octave, 0, cfg.orb.num_levels - 1).long()]
+        # the reference's 50 good points at its ~1000-feature budget
+        quorum = max(25, int(50 * min(1.0, cfg.orb.n_features / 1000.0)))
+        for cand in ids.cpu().numpy():
+            if cand < 0:
+                continue
+            cand = int(cand)
+            m = self.map
+            cand_has = m.kf_feat_valid[cand] & (m.kf_obs_mp[cand] >= 0)
+            idx, ok = matcher.match_mutual(
+                feats.desc, feats.valid, m.kf_desc[cand], cand_has,
+                max_dist=matcher.TH_LOW)
+            if int(torch.sum(ok.to(torch.int32))) < 15:
+                continue
+            idx_c = torch.clamp(idx, 0, m.n_feat - 1).long()
+            mp_rows = torch.clamp(m.kf_obs_mp[cand][idx_c], 0,
+                                  m.max_mp - 1).long()
+            res = pnp_ransac(
+                m.mp_pos[mp_rows], feats.uv, ok & m.mp_valid[mp_rows],
+                self.cam_params, prng.PRNGKey(self.frame_id * 131 + cand),
+                cam_model=cfg.cam_model, inv_sigma2=inv_s2_all)
+            if not bool(res.ok):
+                continue
+            # guided retry over the whole map at the coarse pose
+            upd = self._frame_update(m.mp_visible.clone(),
+                                     m.mp_found.clone(), res.pose, res.pose,
+                                     feats)
+            _, n_i = upd.counts.tolist()
+            if n_i < quorum:
+                continue
+            self.cur_pose = res.pose
+            self.velocity = lie.se3_identity(device=self.device)
+            self.state = TrackState.OK
+            return True
         return False
 
     # -- mapping -----------------------------------------------------------
@@ -590,6 +672,171 @@ class MonoTracker:
         self.frames_since_kf = 0
         self._local_ba()
 
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(kf_id, feats.desc, feats.valid)
+            with stage("loop_closing"):
+                self.loop_closer.try_close(self)
+            if self.enable_atlas and len(self.atlas) > 0:
+                with stage("merge"):
+                    self._try_merge_maps(feats)
+
+    def _try_merge_maps(self, feats) -> bool:
+        """Cross-map place recognition and merge (reference
+        NewDetectCommonRegions -> MergeLocal): the newest keyframe queries
+        every archived map's BoW matrix; a Sim3-verified hit welds the
+        active map into the archived one."""
+        from ..place.database import _query
+        if self._merge_cooldown > 0:
+            self._merge_cooldown -= 1
+            return False
+        if int(self.map.n_kf) < 5:
+            return False
+        cur = self.last_kf_id
+        m = self.map
+        q = self.loop_closer.db.compute_bow(m.kf_desc[cur],
+                                            m.kf_feat_valid[cur])
+        for ai, arch in enumerate(self.atlas.archived):
+            ids, _ = _query(arch.bow, arch.present, q,
+                            torch.zeros_like(arch.present), 2)
+            for cand in ids.cpu().numpy():
+                if cand < 0:
+                    continue
+                if self._verify_and_merge(feats, int(cand), ai):
+                    return True
+        self._merge_cooldown = 5
+        return False
+
+    def _verify_and_merge(self, feats, cand: int, archive_idx: int) -> bool:
+        from ..solver.local_ba import local_ba_step
+        from ..solver.sim3 import optimize_sim3, sim3_ransac
+        dev = self.device
+        cur = self.last_kf_id
+        m_new = self.map
+        m_old = self.atlas.archived[archive_idx].map
+        F = m_new.n_feat
+
+        cand_has = m_old.kf_feat_valid[cand] & (m_old.kf_obs_mp[cand] >= 0)
+        cur_has = m_new.kf_feat_valid[cur] & (m_new.kf_obs_mp[cur] >= 0)
+        idx, ok = matcher.match_mutual(
+            m_old.kf_desc[cand], cand_has, m_new.kf_desc[cur], cur_has,
+            max_dist=matcher.TH_LOW)
+        if int(torch.sum(ok.to(torch.int32))) < 20:
+            return False
+        idx_c = torch.clamp(idx, 0, F - 1).long()
+        mp_old = torch.clamp(m_old.kf_obs_mp[cand], 0,
+                             m_old.max_mp - 1).long()
+        mp_new_row = m_new.kf_obs_mp[cur][idx_c]
+        mp_new = torch.clamp(mp_new_row, 0, m_new.max_mp - 1).long()
+        pair_ok = ok & (mp_new_row >= 0)
+        pose_old = _pose_at(m_old, cand)
+        pose_new = _pose_at(m_new, cur)
+        x1 = lie.se3_apply(pose_old, m_old.mp_pos[mp_old])
+        x2 = lie.se3_apply(pose_new, m_new.mp_pos[mp_new])
+        uv1 = m_old.kf_uv[cand]
+        uv2 = m_new.kf_uv[cur][idx_c]
+        # both-metric welds (stereo rigs, initialized inertial) fix scale
+        fix_scale = hasattr(self, "kf_uright") or bool(
+            getattr(self, "imu_initialized", False))
+        res = sim3_ransac(
+            x1, x2, pair_ok, uv1, uv2, self.cam_params,
+            prng.PRNGKey(cur * 31 + cand), fix_scale=fix_scale,
+            min_inliers=15, cam_model=self.cfg.cam_model)
+        if not bool(res.ok):
+            return False
+        ones = torch.ones(F, dtype=torch.float32, device=dev)
+        S_c, _, n_in = optimize_sim3(
+            res.sim, x1, x2, pair_ok, uv1, uv2, ones, ones, self.cam_params,
+            fix_scale=fix_scale, cam_model=self.cfg.cam_model)
+        if int(n_in) < 20:
+            return False
+
+        # x_newcam = S_c(x_oldcam): S_{old_w -> new_w} =
+        # pose_new^-1 o S_c o pose_old
+        S_old_to_new = lie.sim3_compose(
+            lie.sim3_from_se3(lie.se3_inverse(pose_new)),
+            lie.sim3_compose(S_c, lie.sim3_from_se3(pose_old)))
+        S_new_to_old = lie.sim3_inverse(S_old_to_new)
+
+        # grow the receiving map first if the weld would overflow it
+        need_kf = int(m_old.n_kf) + int(m_new.n_kf)
+        need_mp = int(m_old.n_mp) + int(m_new.n_mp)
+        if need_kf > m_old.max_kf or need_mp > m_old.max_mp:
+            gk = m_old.max_kf
+            while gk < need_kf:
+                gk *= 2
+            gm = m_old.max_mp
+            while gm < need_mp:
+                gm *= 2
+            m_old = ms.grow_map(m_old, new_max_kf=gk, new_max_mp=gm)
+        merged, kf_off, _ = merge_maps(m_old, m_new, S_new_to_old)
+        if merged is None:
+            return False
+
+        arch = self.atlas.archived.pop(archive_idx)
+        self.map = merged
+        self._traj_rel = [(ts, kf + kf_off if kf >= 0 else kf, T)
+                          for ts, kf, T in self._traj_rel]
+        self.last_kf_id = cur + kf_off
+        C = -torch.einsum("ji,j->i", pose_new.R, pose_new.t)
+        C2 = lie.sim3_apply(S_new_to_old, C)
+        R2 = pose_new.R @ S_new_to_old.R.T
+        self.cur_pose = lie.SE3(R2, -(R2 @ C2))
+        self.velocity = lie.se3_identity(device=dev)
+        # the BoW database: archived rows + the active map's rows shifted
+        db = self.loop_closer.db
+        n_new = int(m_new.n_kf)
+        arch_bow, arch_present = arch.bow, arch.present
+        if arch_bow.shape[0] < self.map.max_kf:
+            pad = self.map.max_kf - arch_bow.shape[0]
+            arch_bow = torch.cat([arch_bow, torch.zeros(
+                (pad, arch_bow.shape[1]), dtype=arch_bow.dtype,
+                device=dev)])
+            arch_present = torch.cat([arch_present, torch.zeros(
+                pad, dtype=torch.bool, device=dev)])
+        bow = arch_bow.clone()
+        bow[kf_off:kf_off + n_new] = db.bow[:n_new]
+        present = arch_present.clone()
+        present[kf_off:kf_off + n_new] = db.present[:n_new]
+        db.bow, db.present = bow, present
+        # loop bookkeeping follows the index shift; solves in flight and
+        # the deferred detection saw the old rows
+        lc = self.loop_closer
+        lc.loop_edges = [(i + kf_off, j + kf_off, rel)
+                         for i, j, rel in lc.loop_edges]
+        lc._cons_groups = []
+        lc.pending_gba = None
+        lc._pending_detect = None
+        self._pending_lba = None
+        if lc.last_loop_kf >= 0:
+            lc.last_loop_kf += kf_off
+        # per-keyframe side tables follow the weld
+        self._on_maps_merged(arch, kf_off, S_new_to_old)
+
+        # welding BA (reference MergeLocal's LocalBundleAdjustment): the
+        # welded-in keyframes nearest the seam against the anchored
+        # old-map neighbourhood of the candidate
+        cfg = self.cfg
+        W = cfg.ba_window + cfg.ba_fixed_ring
+        n_total = int(self.map.n_kf)
+        old_side = list(range(max(0, cand - 2), min(kf_off, cand + 3)))
+        new_side = list(range(max(kf_off, n_total - (W - len(old_side))),
+                              n_total))
+        window = np.full(W, -1, np.int32)
+        ids = (old_side + new_side)[:W]
+        window[: len(ids)] = ids
+        fixed = np.zeros(W, bool)
+        fixed[: len(old_side)] = True
+        fixed |= window < 0
+        self.map, _, _ = local_ba_step(
+            self.map, torch.from_numpy(window).to(dev),
+            torch.from_numpy(fixed).to(dev), self.inv_s2, self.cam_params,
+            cam_model=cfg.cam_model, iters_first=cfg.ba_iters_first,
+            iters_second=cfg.ba_iters_second)
+        self.cur_pose = _pose_at(self.map, self.last_kf_id)
+        self._reset_prior()
+        self._merge_cooldown = 20
+        return True
+
     def _cull_keyframes(self):
         """Drop redundant keyframes (reference KeyFrameCulling,
         localmapping.cc:791): a keyframe whose points are > 90% seen by
@@ -622,6 +869,9 @@ class MonoTracker:
                 memb[k] = False
                 oct_of[k] = 99
         if culled:
+            if self.loop_closer is not None:
+                for k in culled:
+                    self.loop_closer.db.remove(k)
             rows = torch.tensor(culled, dtype=torch.long, device=self.device)
             kv = self.map.kf_valid.clone()
             kv[rows] = False
@@ -631,6 +881,16 @@ class MonoTracker:
 
     def _reset_prior(self) -> None:
         """Hook: inertial trackers restart their marginalization chain."""
+
+    def _inertial_archive_snapshot(self):
+        """Hook: inertial trackers return their per-keyframe side tables
+        for the atlas archive (None: a visual map)."""
+        return None
+
+    def _on_maps_merged(self, arch, kf_off: int,
+                        S_new_to_old: lie.Sim3) -> None:
+        """Hook: subclasses rebuild their per-keyframe side tables after
+        the active map was welded into an archived one."""
 
     def _can_cull(self, k: int) -> bool:
         """Hook: the inertial mixin vetoes culls that open long gaps."""

@@ -15,8 +15,12 @@ adds the reference's inertial machinery to the visual trackers:
 
 The per-keyframe inertial records are host lists, as in the reference,
 and so are its host reads of the map's keyframe count, the init's scale
-and the solved velocities. Map merging (``_on_maps_merged``) needs the
-atlas and the loop closer, which are not ported yet (ROADMAP A13).
+and the solved velocities. The atlas archive keeps them
+(``_inertial_archive_snapshot``); after a merge (``_on_maps_merged``,
+the reference's MergeLocal2) they are re-homed into the welded index
+space, the active map's velocities move by the weld Sim3, and an
+initialized session re-aligns gravity over the joint history and re-runs
+the full visual-inertial BA.
 """
 
 from __future__ import annotations
@@ -266,10 +270,44 @@ class InertialMixin:
         self._imu_stage = 0
         self._imu_init_time = 0.0
 
+    def _inertial_archive_snapshot(self):
+        return {"kf_vel": list(self.kf_vel), "kf_bias": list(self.kf_bias),
+                "kf_pre": list(self.kf_pre), "kf_time": list(self.kf_time),
+                "kf_raw": list(self.kf_raw)}
+
     def _on_maps_merged(self, arch, kf_off: int, S_new_to_old):
-        raise NotImplementedError(
-            "inertial map merging needs the atlas and the loop closer, which "
-            "are not ported yet (ROADMAP A13)")
+        """Inertial merge (reference MergeLocal2 + MergeInertialBA):
+        re-home the per-keyframe tables into the welded index space, move
+        the active map's velocities by the weld (v' = s R v; biases and
+        body-frame preintegrations do not change), then re-align gravity
+        and re-solve the full inertial history over the merged map."""
+        super()._on_maps_merged(arch, kf_off, S_new_to_old)
+        s = float(S_new_to_old.s)
+        R = _host(S_new_to_old.R)
+        new_vel = [s * (R @ np.asarray(v)) for v in self.kf_vel]
+        ai = arch.inertial
+        if ai is None:
+            old_ts = _host(arch.map.kf_timestamp[:kf_off])
+            old = {"kf_vel": [np.zeros(3, np.float32)] * kf_off,
+                   "kf_bias": [zero_bias(self.device)] * kf_off,
+                   "kf_pre": [None] * kf_off,
+                   "kf_time": [float(t) for t in old_ts],
+                   "kf_raw": [None] * kf_off}
+        else:
+            old = ai
+        self.kf_vel = list(old["kf_vel"]) + new_vel
+        self.kf_bias = list(old["kf_bias"]) + list(self.kf_bias)
+        self.kf_pre = list(old["kf_pre"]) + list(self.kf_pre)
+        self.kf_time = list(old["kf_time"]) + list(self.kf_time)
+        self.kf_raw = list(old["kf_raw"]) + list(self.kf_raw)
+        self.cur_vel = torch.from_numpy(
+            np.array(self.kf_vel[-1], np.float32)).to(self.device)
+        # the merged world is the archived map's frame: gravity alignment
+        # is re-established over the joint history
+        if self.imu_initialized:
+            if self._inertial_estimate_apply(refine=False):
+                self._full_vi_ba()
+            self._reset_prior()
 
     def _can_cull(self, k: int) -> bool:
         """Inertial culling gate: the merged preintegration window after
@@ -362,6 +400,10 @@ class InertialMixin:
         # the solve reads every keyframe pose and then gauge-transforms the
         # whole map: land a background local BA in flight first
         self._lba_drain()
+        # ...and drop a GBA snapshot: its adoption cannot represent a
+        # global gauge change
+        if self.loop_closer is not None:
+            self.loop_closer.pending_gba = None
         n_kf = int(self.map.n_kf)
         ifac = self._inertial_factor_batch(0, n_kf)
         if ifac is None or ifac.i.shape[0] < self.init_min_kfs - 2:
@@ -478,6 +520,9 @@ class InertialMixin:
         # a background visual LBA in flight solved the same rows: land it
         # first so its later write-back cannot clobber this solve
         self._lba_drain()
+        # a pending GBA snapshot would scatter pre-VI-BA values: drop it
+        if self.loop_closer is not None:
+            self.loop_closer.pending_gba = None
         cfg = self.cfg
         dev = self.device
         n_kf = int(self.map.n_kf)

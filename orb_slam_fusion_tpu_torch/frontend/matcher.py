@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 TH_LOW = 50
@@ -114,3 +115,40 @@ def search_by_projection(pred_uv, mp_desc, mp_valid, mp_octave, kp_uv,
         <= octave_window
     mask = within & oct_ok & mp_valid[:, None] & kp_valid[None, :]
     return match_masked(mp_desc, kp_desc, mask, max_dist, ratio)
+
+
+def rotation_consistency_mask(angle1: torch.Tensor, angle2: torch.Tensor,
+                              match_idx: torch.Tensor, ok: torch.Tensor,
+                              n_bins: int = 30, keep_bins: int = 3
+                              ) -> torch.Tensor:
+    """Rotation-histogram filter (reference ORBmatcher::ComputeThreeMaxima,
+    HISTO_LENGTH = 30): keep the matches whose keypoint-angle difference
+    falls in the ``keep_bins`` most popular bins (ties to the lower bin,
+    as ``lax.top_k``)."""
+    a2 = angle2[torch.clamp(match_idx, 0, angle2.shape[0] - 1).long()]
+    da = angle1 - torch.where(ok, a2, torch.zeros_like(a2))
+    two_pi = torch.tensor(2.0 * np.pi, dtype=da.dtype, device=da.device)
+    # jnp.mod: the remainder takes the divisor's sign
+    rem = torch.fmod(da, two_pi)
+    da = torch.where((rem != 0) & (rem < 0), rem + two_pi, rem)
+    n = torch.tensor(float(n_bins), dtype=da.dtype, device=da.device)
+    bins = torch.clamp((da / two_pi * n).to(torch.int32), 0, n_bins - 1)
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=da.device)
+    hist.index_add_(0, bins.long(), ok.to(torch.int32))
+    top = torch.sort(hist, descending=True, stable=True)[1][:keep_bins]
+    in_top = torch.any(bins[:, None].long() == top[None, :], dim=1)
+    return ok & in_top
+
+
+def search_by_bow(node1: torch.Tensor, desc1: torch.Tensor,
+                  valid1: torch.Tensor, node2: torch.Tensor,
+                  desc2: torch.Tensor, valid2: torch.Tensor,
+                  max_dist: int = TH_LOW, ratio: float = RATIO
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct-index-constrained matching (reference ORBmatcher::
+    SearchByBoW): features are compared only when they descend through
+    the same vocabulary node at the direct-index level (node -1 never
+    matches). Returns (match_idx (N,) into desc2 or -1, ok (N,))."""
+    same = (node1[:, None] == node2[None, :]) & (node1 >= 0)[:, None]
+    mask = same & valid1[:, None] & valid2[None, :]
+    return match_masked(desc1, desc2, mask, max_dist, ratio)

@@ -5,8 +5,9 @@ rotations are ``(..., 3, 3)``, SE(3) is ``(R, t)`` acting as ``R @ x + t``,
 and tangent vectors are ``[v, w]`` (translation first). Small-angle cases
 use ``torch.where`` on Taylor expansions, so every function is branch-free,
 broadcasts over leading batch dimensions and differentiates under
-``torch.func.jacfwd`` (the inertial solvers' Jacobians). Sim(3) is not
-ported yet.
+``torch.func.jacfwd`` (the inertial solvers' Jacobians). Sim(3) is a
+triple ``(s, R, t)`` acting as ``s * R @ x + t`` with tangent
+``[v, w, sigma]`` (sigma the log scale), as in the reference.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ _EPS = 1e-8
 class SE3(NamedTuple):
     """Batched rigid transform x -> R @ x + t."""
 
+    R: torch.Tensor  # (..., 3, 3)
+    t: torch.Tensor  # (..., 3)
+
+
+class Sim3(NamedTuple):
+    """Batched similarity transform x -> s * R @ x + t."""
+
+    s: torch.Tensor  # (...,)
     R: torch.Tensor  # (..., 3, 3)
     t: torch.Tensor  # (..., 3)
 
@@ -213,3 +222,93 @@ def se3_apply(T: SE3, x: torch.Tensor) -> torch.Tensor:
 def se3_boxplus(T: SE3, xi: torch.Tensor) -> SE3:
     """Left-multiplicative update exp(xi) * T (the solvers' retraction)."""
     return se3_compose(se3_exp(xi), T)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+
+def sim3_identity(batch_shape: Tuple[int, ...] = (), dtype=torch.float32,
+                  device=None) -> Sim3:
+    dev = resolve_device(device)
+    shape = tuple(batch_shape)
+    return Sim3(torch.ones(shape, dtype=dtype, device=dev),
+                torch.eye(3, dtype=dtype, device=dev).expand(
+                    shape + (3, 3)).clone(),
+                torch.zeros(shape + (3,), dtype=dtype, device=dev))
+
+
+def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The Sim(3) 'W' matrix coupling translation with rotation and scale:
+    W = A Wx + B Wx^2 + C I, each coefficient with its Taylor limits for
+    small theta and small sigma (reference lie.py::_sim3_W)."""
+    th2_raw, small_th, th_s, th2 = _theta_terms(w)
+    Wx = hat(w)
+    Wx2 = Wx @ Wx
+    s = torch.exp(sigma)
+    one = torch.ones_like(sigma)
+
+    small_sig = torch.abs(sigma) < 1e-5
+    sig_s = torch.where(small_sig, one, sigma)
+    C = torch.where(small_sig, 1.0 + sigma / 2.0 + sigma * sigma / 6.0,
+                    (s - 1.0) / sig_s)
+    sig2 = sig_s * sig_s
+    denom = sig2 + th2
+    sin_t, cos_t = torch.sin(th_s), torch.cos(th_s)
+
+    A_gen = (s * sin_t * sig_s + (1.0 - s * cos_t) * th_s) / (th_s * denom)
+    B_gen = (C - ((s * cos_t - 1.0) * sig_s + s * sin_t * th_s) / denom) \
+        / th2
+    A_sig0 = torch.where(small_th, 0.5 - th2_raw / 24.0, (1.0 - cos_t) / th2)
+    B_sig0 = torch.where(small_th, 1.0 / 6.0 - th2_raw / 120.0,
+                         (th_s - sin_t) / (th_s ** 3))
+    A_th0 = torch.where(small_sig, 0.5 + sigma / 3.0,
+                        ((sig_s - 1.0) * s + 1.0) / sig2)
+    B_th0 = torch.where(small_sig, 1.0 / 6.0 + sigma / 8.0,
+                        (s * (0.5 * sig2 - sig_s + 1.0) - 1.0)
+                        / (sig2 * sig_s))
+    A = torch.where(small_th, A_th0, torch.where(small_sig, A_sig0, A_gen))
+    B = torch.where(small_th, B_th0, torch.where(small_sig, B_sig0, B_gen))
+    return (A[..., None, None] * Wx + B[..., None, None] * Wx2
+            + C[..., None, None] * _eye3_like(Wx))
+
+
+def sim3_exp(xi: torch.Tensor) -> Sim3:
+    """Exp map R^7 -> Sim(3); xi = [v, w, sigma] (g2o::Sim3 semantics)."""
+    v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return Sim3(torch.exp(sigma), so3_exp(w), _mv(_sim3_W(w, sigma), v))
+
+
+def sim3_log(S: Sim3) -> torch.Tensor:
+    """Log map Sim(3) -> R^7 = [v, w, sigma]."""
+    sigma = torch.log(S.s)
+    w = so3_log(S.R)
+    v = torch.linalg.solve(_sim3_W(w, sigma), S.t.unsqueeze(-1)).squeeze(-1)
+    return torch.cat([v, w, sigma[..., None]], dim=-1)
+
+
+def sim3_inverse(S: Sim3) -> Sim3:
+    Rt = S.R.transpose(-1, -2)
+    s_inv = 1.0 / S.s
+    return Sim3(s_inv, Rt, -s_inv[..., None] * _mv(Rt, S.t))
+
+
+def sim3_compose(A: Sim3, B: Sim3) -> Sim3:
+    return Sim3(A.s * B.s, A.R @ B.R, A.s[..., None] * _mv(A.R, B.t) + A.t)
+
+
+def sim3_apply(S: Sim3, x: torch.Tensor) -> torch.Tensor:
+    return S.s[..., None] * _mv(S.R, x) + S.t
+
+
+def sim3_from_se3(T: SE3, s=None) -> Sim3:
+    scale = torch.ones(T.t.shape[:-1], dtype=T.t.dtype,
+                       device=T.t.device) if s is None else s
+    return Sim3(scale, T.R, T.t)
+
+
+def se3_from_sim3(S: Sim3) -> SE3:
+    """Drop scale: translation divided by scale (the loop-closing
+    convention [R t/s; 0 1])."""
+    return SE3(S.R, S.t / S.s[..., None])

@@ -108,7 +108,7 @@ def preintegrated_from_numpy(fields: Dict[str, object], device=None):
 
 def _inertial_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     """The inertial part of ``tracker_state_from_numpy``."""
-    from ..imu.preintegration import ImuBias, ImuCalib
+    from ..imu.preintegration import ImuCalib
     from ..solver.pose_inertial_prior import PoseImuPrior
 
     dev = tracker.device
@@ -116,19 +116,16 @@ def _inertial_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     def t(name, a):
         return _to_torch(name, np.asarray(a, np.float32), dev)
 
-    def bias(b):
-        return ImuBias(t("g", b[0]), t("a", b[1]))
-
     def pre(p):
         return None if p is None else preintegrated_from_numpy(p, dev)
 
     c = state["calib"]
     tracker.calib = ImuCalib(**{n: t(n, c[n]) for n in ImuCalib._fields})
-    tracker.bias = bias(state["bias"])
+    tracker.bias = _bias_from_numpy(state["bias"], dev)
     tracker.cur_vel = t("v", state["cur_vel"])
     tracker.gravity_w = t("g", state["gravity_w"])
     tracker.kf_vel = [np.array(v, np.float32) for v in state["kf_vel"]]
-    tracker.kf_bias = [bias(b) for b in state["kf_bias"]]
+    tracker.kf_bias = [_bias_from_numpy(b, dev) for b in state["kf_bias"]]
     tracker.kf_pre = [pre(p) for p in state["kf_pre"]]
     tracker.kf_raw = [None if r is None else tuple(
         np.array(x, np.float64) for x in r) for r in state["kf_raw"]]
@@ -147,6 +144,64 @@ def _inertial_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     tracker.imu_initialized = bool(state["imu_initialized"])
     lt = state["last_frame_time"]
     tracker._last_frame_time = None if lt is None else float(lt)
+
+
+def _bias_from_numpy(b, dev):
+    from ..imu.preintegration import ImuBias
+    return ImuBias(_to_torch("g", np.asarray(b[0], np.float32), dev),
+                   _to_torch("a", np.asarray(b[1], np.float32), dev))
+
+
+def sim3_from_numpy(S, device=None):
+    """(s, R, t) numpy triple -> Sim3 of float32 tensors."""
+    dev = resolve_device(device)
+    return lie.Sim3(*(_to_torch("s", np.asarray(x, np.float32), dev)
+                      for x in S))
+
+
+def _loop_closer_from_numpy(lc, st: Dict[str, object], dev) -> None:
+    """The loop closer's state: its database rows, consistency groups,
+    loop edges, counters and the detection deferred to the next
+    keyframe."""
+    lc.db.bow = _to_torch("bow", np.asarray(st["bow"], np.float32), dev)
+    lc.db.present = _to_torch("present", np.asarray(st["present"], bool),
+                              dev)
+    lc._cons_groups = [(frozenset(int(k) for k in g), int(c))
+                       for g, c in st["cons_groups"]]
+    lc.loop_edges = [(int(i), int(j), sim3_from_numpy(S, dev))
+                     for i, j, S in st["loop_edges"]]
+    lc.stats = dict(st["stats"])
+    lc.last_loop_kf = int(st["last_loop_kf"])
+    lc.num_closed = int(st["num_closed"])
+    pd = st["pending_detect"]
+    lc._pending_detect = None if pd is None else (
+        int(pd[0]), _to_torch("ids", np.asarray(pd[1], np.int32), dev),
+        _to_torch("groups", np.asarray(pd[2], bool), dev),
+        _to_torch("scores", np.asarray(pd[3], np.float32), dev),
+        _to_torch("n", np.asarray(pd[4], np.int32), dev))
+    lc.pending_gba = None
+
+
+def _archived_map_from_numpy(a: Dict[str, object], dev):
+    """An ``ArchivedMap`` from numpy; its inertial tables (if any) as in
+    ``tracker_state_from_numpy``."""
+    from .atlas import ArchivedMap
+    inertial = a.get("inertial")
+    if inertial is not None:
+        inertial = dict(
+            kf_vel=[np.array(v, np.float32) for v in inertial["kf_vel"]],
+            kf_bias=[_bias_from_numpy(b, dev) for b in inertial["kf_bias"]],
+            kf_pre=[None if p is None else preintegrated_from_numpy(p, dev)
+                    for p in inertial["kf_pre"]],
+            kf_time=[float(x) for x in inertial["kf_time"]],
+            kf_raw=[None if r is None else tuple(
+                np.array(x, np.float64) for x in r)
+                for r in inertial["kf_raw"]])
+    return ArchivedMap(
+        map_state_from_numpy(a["map"], dev),
+        _to_torch("bow", np.asarray(a["bow"], np.float32), dev),
+        _to_torch("present", np.asarray(a["present"], bool), dev),
+        inertial)
 
 
 def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
@@ -170,8 +225,17 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
     lists since the last keyframe), ``prev_pose_imu``, ``prev_vel_imu``,
     ``prior`` (a dict of the ``PoseImuPrior`` fields, or None),
     ``imu_stage``, ``imu_init_time``, ``imu_initialized`` and
-    ``last_frame_time``. A background local BA in flight does not travel:
-    drain it on the source side first.
+    ``last_frame_time``. A session with a loop closer also carries
+    ``loop_closer``: its database (``bow`` (K, V), ``present``),
+    ``cons_groups`` ([(keyframe rows, count)]), ``loop_edges``
+    ([(i, j, (s, R, t))]), ``stats``, ``last_loop_kf``, ``num_closed``
+    and ``pending_detect`` (None, or (kf_id, ids, groups, scores,
+    n_elig)); ``atlas``, the archived maps ([{map, bow, present,
+    inertial}], ``inertial`` None or the lists ``kf_vel``, ``kf_bias``,
+    ``kf_pre``, ``kf_time``, ``kf_raw`` in the formats above),
+    ``reloc_grace_frames`` and ``merge_cooldown``. A background local or
+    global BA in flight does not travel: drain it on the source side
+    first.
     """
     from ..engine.tracker import FrameRecord, TrackState
 
@@ -208,3 +272,13 @@ def tracker_state_from_numpy(tracker, state: Dict[str, object]) -> None:
         tracker.kf_uright = _to_torch("kf_uright", state["kf_uright"], dev)
     if state.get("calib") is not None:
         _inertial_state_from_numpy(tracker, state)
+    if state.get("loop_closer") is not None:
+        _loop_closer_from_numpy(tracker.loop_closer, state["loop_closer"],
+                                dev)
+    if state.get("atlas") is not None:
+        tracker.atlas.archived = [_archived_map_from_numpy(a, dev)
+                                  for a in state["atlas"]]
+    if state.get("reloc_grace_frames") is not None:
+        tracker.reloc_grace_frames = int(state["reloc_grace_frames"])
+    if state.get("merge_cooldown") is not None:
+        tracker._merge_cooldown = int(state["merge_cooldown"])

@@ -4,7 +4,8 @@ Counterpart of ``orb_slam_fusion_tpu/sim.py`` (``SyntheticWorld``,
 ``make_corridor_world``, ``world_from_trajectory``, ``render_frame``,
 ``render_stereo_frame``, ``render_fisheye_stereo_frame``,
 ``render_image``, ``gt_positions``, and the inertial sessions'
-``make_vio_sequence``), for the port's tests and
+``make_vio_sequence`` and ``vio_from_gt_trajectory``), for the port's
+tests and
 ``chip_smoke.py``, which run without JAX. Given the same arguments it
 returns the reference's arrays bit for bit, so both packages track the
 same inputs.
@@ -24,7 +25,11 @@ op:
 * ``lie.so3_exp`` takes XLA:CPU's ``sin``/``cos``, which are glibc's
   ``sinf``/``cosf`` (glibc 2.36: double-precision polynomials after a
   fast pi/2 reduction); ``_sincosf`` evaluates the same polynomials
-  with the same table.
+  with the same table;
+* ``lie.quat_from_mat`` and ``lie.so3_log`` (``quat_from_mat_f32``,
+  ``so3_log_f32``) round each eager op once; ``jnp.linalg.norm`` is a
+  fused multiply-add chain of the squares, and ``arctan2`` is glibc's
+  ``atan2f``.
 
 A fused multiply-add is computed in float64 (the product of two float32
 values is exact there) and rounded once to float32.
@@ -313,6 +318,61 @@ def quat_to_mat(qv):
     ])
 
 
+def _norm_f32(v: np.ndarray) -> np.ndarray:
+    """``jnp.linalg.norm`` over the last axis: a fused multiply-add chain
+    of the squares in index order, then the square root."""
+    x = np.asarray(v, f32).astype(np.float64)
+    acc = (x[..., 0] * x[..., 0]).astype(f32)
+    for i in range(1, x.shape[-1]):
+        acc = (acc.astype(np.float64) + x[..., i] * x[..., i]).astype(f32)
+    return np.sqrt(acc).astype(f32)
+
+
+def quat_from_mat_f32(R: np.ndarray) -> np.ndarray:
+    """The reference's eager float32 ``lie.quat_from_mat`` of one (3, 3)
+    rotation: Shepperd's four candidates, the largest pivot's chosen
+    (the first on ties), w >= 0, normalized."""
+    R = np.asarray(R, f32)
+    m = [[R[i, j] for j in range(3)] for i in range(3)]
+    one, two = f32(1.0), f32(2.0)
+    tr = f32(f32(m[0][0] + m[1][1]) + m[2][2])
+
+    def piv(a, b, c):
+        return f32(f32(f32(one + a) - b) - c)
+
+    pivots = [f32(one + tr), piv(m[0][0], m[1][1], m[2][2]),
+              f32(f32(f32(one - m[0][0]) + m[1][1]) - m[2][2]),
+              f32(f32(f32(one - m[0][0]) - m[1][1]) + m[2][2])]
+    d21, d02, d10 = (f32(m[2][1] - m[1][2]), f32(m[0][2] - m[2][0]),
+                     f32(m[1][0] - m[0][1]))
+    s01, s02, s12 = (f32(m[0][1] + m[1][0]), f32(m[0][2] + m[2][0]),
+                     f32(m[1][2] + m[2][1]))
+    comps = [(pivots[0], d21, d02, d10), (d21, pivots[1], s01, s02),
+             (d02, s01, pivots[2], s12), (d10, s02, s12, pivots[3])]
+    k = int(np.argmax(np.array(pivots, f32)))
+    sc = f32(np.sqrt(f32(max(pivots[k], f32(1e-8)))) * two)
+    q = np.array([f32(c / sc) for c in comps[k]], f32)
+    if q[0] < 0:
+        q = (q * f32(-1.0)).astype(f32)
+    return (q / _norm_f32(q)).astype(f32)
+
+
+def so3_log_f32(R: np.ndarray) -> np.ndarray:
+    """The reference's eager float32 ``lie.so3_log`` of one rotation
+    (quaternion route; glibc's ``atan2f``)."""
+    from .frontend.extractor import atan2f
+    q = quat_from_mat_f32(R)
+    w, v = q[0], q[1:]
+    vnorm = _norm_f32(v)
+    ang = atan2f(torch.tensor([vnorm]), torch.tensor([w])).numpy()[0]
+    angle = f32(f32(2.0) * ang)
+    if vnorm < f32(1e-6):
+        factor = f32(f32(2.0) / max(w, f32(1e-8)))
+    else:
+        factor = f32(angle / vnorm)
+    return (v * factor).astype(f32)
+
+
 def world_from_trajectory(positions: np.ndarray, n_points: int = 6000,
                           seed: int = 0,
                           timestamps: Optional[np.ndarray] = None,
@@ -467,6 +527,98 @@ def make_vio_sequence(n_frames: int = 120, fps: float = 20.0,
                           t_meas.astype(np.float64)))
     return VioSequence(world=world, frame_imu=frame_imu,
                        vel=np.stack(vels), gravity=g_w,
+                       gyro_bias_true=bg, acc_bias_true=ba_)
+
+
+def vio_from_gt_trajectory(positions: np.ndarray, quats_wxyz: np.ndarray,
+                           timestamps: np.ndarray, imu_rate: float = 200.0,
+                           n_points: int = 8000, seed: int = 0,
+                           gyro_noise: float = 0.0, acc_noise: float = 0.0,
+                           gyro_bias: float = 0.0, acc_bias: float = 0.0,
+                           point_margin: float = 3.0) -> VioSequence:
+    """Inertial sequence along a ground-truth trajectory (positions and
+    R_wb quaternions at frame rate): cubic positions and slerped
+    orientations at IMU rate, then IMU samples that Euler-integrate
+    exactly into them (camera = body, gravity -9.81 z). The reference's
+    numpy lines, with its eager float32 ``so3_log`` of each step's
+    rotation rebuilt by ``so3_log_f32``."""
+    from scipy.interpolate import CubicSpline
+
+    rng = np.random.RandomState(seed)
+    g_w = np.array([0.0, 0.0, -9.81])
+    t = np.asarray(timestamps, np.float64)
+    t = t - t[0]
+    fps = (len(t) - 1) / max(t[-1], 1e-9)
+    n_imu = int(round(imu_rate / fps))
+    dt = (t[-1] - t[0]) / ((len(t) - 1) * n_imu)
+    n_frames = len(t)
+    total = (n_frames - 1) * n_imu + 1
+    tt = np.arange(total) * dt
+
+    p_spline = CubicSpline(t, np.asarray(positions, np.float64), axis=0)
+    p_hi = p_spline(tt)
+
+    q = np.asarray(quats_wxyz, np.float64)
+    for k in range(1, len(q)):
+        if np.dot(q[k], q[k - 1]) < 0:
+            q[k] = -q[k]
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    idx = np.clip(np.searchsorted(t, tt, side="right") - 1, 0, n_frames - 2)
+    u = (tt - t[idx]) / np.maximum(t[idx + 1] - t[idx], 1e-9)
+    q0, q1 = q[idx], q[idx + 1]
+    dotq = np.clip(np.sum(q0 * q1, axis=1, keepdims=True), -1.0, 1.0)
+    ang = np.arccos(dotq)
+    small = ang[:, 0] < 1e-6
+    w0 = np.where(small[:, None], 1 - u[:, None],
+                  np.sin((1 - u[:, None]) * ang) / np.maximum(np.sin(ang),
+                                                              1e-12))
+    w1 = np.where(small[:, None], u[:, None],
+                  np.sin(u[:, None] * ang) / np.maximum(np.sin(ang), 1e-12))
+    q_hi = q0 * w0 + q1 * w1
+    q_hi /= np.linalg.norm(q_hi, axis=1, keepdims=True)
+    R_hi = np.stack([quat_to_mat(qv) for qv in q_hi])   # R_wb
+
+    bg = rng.randn(3) * gyro_bias
+    ba_ = rng.randn(3) * acc_bias
+    v = (p_hi[1] - p_hi[0]) / dt
+    accs = np.zeros((total - 1, 3))
+    gyros = np.zeros((total - 1, 3))
+    vels_frame = []
+    Rs_cw, ts_cw = [], []
+    for k in range(total - 1):
+        if k % n_imu == 0:
+            Rs_cw.append(R_hi[k].T)
+            ts_cw.append(-R_hi[k].T @ p_hi[k])
+            vels_frame.append(v.copy())
+        a_w = 2.0 * (p_hi[k + 1] - p_hi[k] - v * dt) / (dt * dt)
+        dR = R_hi[k].T @ R_hi[k + 1]
+        w_b = so3_log_f32(dR.astype(f32)) / dt
+        accs[k] = R_hi[k].T @ (a_w - g_w) + ba_ + rng.randn(3) * acc_noise
+        gyros[k] = w_b + bg + rng.randn(3) * gyro_noise
+        v = v + a_w * dt
+    Rs_cw.append(R_hi[-1].T)
+    ts_cw.append(-R_hi[-1].T @ p_hi[-1])
+    vels_frame.append(v.copy())
+
+    poses = SE3(np.stack(Rs_cw).astype(f32), np.stack(ts_cw).astype(f32))
+    lo = p_hi.min(axis=0) - point_margin
+    hi = p_hi.max(axis=0) + point_margin
+    pts = rng.uniform(lo, hi, size=(n_points, 3)).astype(np.float32)
+    desc = rng.randint(0, 2 ** 32, size=(n_points, 8),
+                       dtype=np.uint64).astype(np.uint32)
+    world = SyntheticWorld(pts, desc, poses,
+                           (t[: n_frames]).astype(np.float64),
+                           _canonical_distances(pts, p_hi[::n_imu], rng))
+    # frame_imu[f] covers (t[f], t[f+1]], as make_vio_sequence's
+    frame_imu = []
+    for f in range(n_frames):
+        sl = slice(f * n_imu, min((f + 1) * n_imu, total - 1))
+        t_meas = tt[sl.start:sl.stop] + dt
+        frame_imu.append((accs[sl].astype(np.float32),
+                          gyros[sl].astype(np.float32),
+                          t_meas.astype(np.float64)))
+    return VioSequence(world=world, frame_imu=frame_imu,
+                       vel=np.stack(vels_frame), gravity=g_w,
                        gyro_bias_true=bg, acc_bias_true=ba_)
 
 

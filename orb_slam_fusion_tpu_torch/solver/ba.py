@@ -1,8 +1,8 @@
-"""Windowed bundle adjustment with Schur elimination (the window layout).
+"""Bundle adjustment with Schur elimination: local windows and global BA.
 
-Counterpart of the ``window_layout=True`` path of
-``orb_slam_fusion_tpu/solver/ba.py``: a static-shape problem built from a
-keyframe window (``make_window_problem``), two-phase robust LM (Huber, then
+Counterpart of ``orb_slam_fusion_tpu/solver/ba.py``: a static-shape
+problem (a keyframe window from ``make_window_problem``, or the general
+layout of ``make_problem``), two-phase robust LM (Huber, then
 chi-square re-mask and plain Gauss-Newton weights), landmark elimination
 with closed-form 3x3 inverses, a dense Cholesky solve of the reduced
 camera system and batched back-substitution.
@@ -18,11 +18,15 @@ u_R = u_L - bf/z on its stereo factors, held to the 3-dof chi-square
 threshold (``_factor_chi2_th``); a monocular problem keeps two rows.
 ``make_problem`` builds the reference's general layout (each landmark's
 factor rows in order, up to ``max_obs``), which the visual-inertial BA
-(``solver/vi_ba.py``) solves; the visual solves here, and the matrix-free
-PCG step of global BA, take only the window layout (the rest is ROADMAP
-A13).
+(``solver/vi_ba.py``) and global BA solve: ``_lm_step`` with
+``window_layout=False`` scatters its pose-axis sums by ``kf_idx``, and
+``_lm_step_cg`` (``pose_stride > 0``) solves the reduced camera system
+matrix-free by block-Jacobi preconditioned conjugate gradients, for the
+window-contiguous layout of ``observation_triples`` over the whole map
+(global BA at grown capacities, K = 512, M = 32,768).
 ``ChunkedLM`` runs the same two-phase solve resumably, a few iterations
-per call, for the tracker's background local BA.
+per call, for the tracker's background local BA and the loop closer's
+background global BA.
 """
 
 from __future__ import annotations
@@ -274,16 +278,17 @@ def _robust_cost(r, inv_sigma2, active, chi2_th):
 
 def _lm_step(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
              inlier: torch.Tensor, prob: BAProblem, cam_model: str,
-             chi2_th: float, use_robust: bool):
-    """One damped LM step with Schur elimination (window layout: factor f
-    belongs to window row f // (F/K), landmark slot o is window row o)."""
+             chi2_th: float, use_robust: bool, window_layout: bool = False):
+    """One damped LM step with Schur elimination. ``window_layout``: factor
+    f belongs to window row f // (F/K) and landmark slot o is window row o
+    (``make_window_problem``); otherwise the pose-axis sums scatter by
+    ``kf_idx`` and each landmark's slots by the pose of their factor."""
     dtype, dev = points.dtype, points.device
     K = poses.t.shape[0]
     M = points.shape[0]
     F = prob.kf_idx.shape[0]
-    if prob.lm_factor_idx.shape[1] != K or F % K:
-        raise ValueError("_lm_step needs make_window_problem's layout")
-    stride = F // K
+    if window_layout and (prob.lm_factor_idx.shape[1] != K or F % K):
+        raise ValueError("window_layout needs make_window_problem's layout")
 
     r, Jp, Jl, depth_ok = _eval_factors(poses, points, prob, cam_model)
     active = prob.valid & inlier & depth_ok
@@ -298,17 +303,31 @@ def _lm_step(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
     gl_f = torch.einsum("fik,fi->fk", Jlw, r)                  # (F,3)
     Hpl_f = torch.einsum("fik,fil->fkl", Jpw, Jl)              # (F,6,3)
     Hll_f = torch.einsum("fik,fil->fkl", Jlw, Jl)              # (F,3,3)
-    Hpp = torch.einsum("fik,fil->fkl", Jpw, Jp).reshape(
-        K, stride, 6, 6).sum(dim=1)                            # (K,6,6)
-    gp = gp_f.reshape(K, stride, 6).sum(dim=1)                 # (K,6)
-
-    # landmark grouping: slot o of landmark m is its factor in window row o
-    fidx = prob.lm_factor_idx.long()                           # (M,K)
+    Hpp_f = torch.einsum("fik,fil->fkl", Jpw, Jp)              # (F,6,6)
+    fidx = prob.lm_factor_idx.long()                           # (M,O)
     vmf = prob.lm_factor_valid
     zero = torch.zeros((), dtype=dtype, device=dev)
     Hll = torch.where(vmf[..., None, None], Hll_f[fidx], zero).sum(dim=1)
     gl = torch.where(vmf[..., None], gl_f[fidx], zero).sum(dim=1)
-    W = torch.where(vmf[..., None, None], Hpl_f[fidx], zero)   # (M,K,6,3)
+    GW = torch.where(vmf[..., None, None], Hpl_f[fidx], zero)  # (M,O,6,3)
+    if window_layout:
+        stride = F // K
+        Hpp = Hpp_f.reshape(K, stride, 6, 6).sum(dim=1)        # (K,6,6)
+        gp = gp_f.reshape(K, stride, 6).sum(dim=1)             # (K,6)
+        W = GW                                 # slot o IS window row o
+    else:
+        # accumulating index_put_ sums in factor order on every device
+        # (index_add_'s atomics on the card sum in any order, so two runs
+        # would part)
+        kf = prob.kf_idx.long()
+        Hpp = torch.zeros((K, 6, 6), dtype=dtype, device=dev).index_put_(
+            (kf,), Hpp_f, accumulate=True)
+        gp = torch.zeros((K, 6), dtype=dtype, device=dev).index_put_(
+            (kf,), gp_f, accumulate=True)
+        pose_of = kf[torch.clamp(fidx, 0, F - 1)]              # (M,O)
+        rows = torch.arange(M, device=dev)[:, None].expand_as(pose_of)
+        W = torch.zeros((M, K, 6, 3), dtype=dtype, device=dev)
+        W.index_put_((rows, pose_of), GW, accumulate=True)     # (M,K,6,3)
 
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     Hll_d = Hll + lam * Hll * eye3 + 1e-8 * eye3
@@ -330,13 +349,144 @@ def _lm_step(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
     S = S + torch.diag(fpv.to(dtype))
     g_r = torch.where(fp[:, None], zero, g_r)
     S = S + torch.diag(lam * torch.diagonal(S) + 1e-8)
-    L, _ = torch.linalg.cholesky_ex(S)
-    dx_p = -torch.cholesky_solve(g_r.reshape(-1, 1), L).reshape(K, 6)
+    # NaN where the Cholesky factorization fails, as the reference's
+    # solve(assume_a="pos"): the accept test then rejects the step
+    dx_p = -solve_pos(S, g_r.reshape(-1)).reshape(K, 6)
     dx_p = torch.where(fp[:, None], zero, dx_p)
 
     back = torch.einsum("mkpc,kp->mc", W, dx_p)                # (M,3)
     dx_l = (Hinv @ (-gl - back).unsqueeze(-1)).squeeze(-1)
     dx_l = torch.where(fixl[:, None], zero, dx_l)
+    return lie.se3_boxplus(poses, dx_p), points + dx_l, active
+
+
+def _flat_inv3x3(H9: torch.Tensor) -> torch.Tensor:
+    """``inv3x3`` on (M, 9) row-major flattened blocks -> (M, 9) (the
+    reference's TPU layout; the same products)."""
+    return inv3x3(H9.reshape(-1, 3, 3)).reshape(-1, 9)
+
+
+def solve_pos(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x = H^-1 g for symmetric positive definite H (batched; g a vector or
+    a matrix per H); NaN where the Cholesky factorization fails, as the
+    reference's ``solve(assume_a="pos")`` and ``cho_solve`` give."""
+    L, info = torch.linalg.cholesky_ex(H)
+    vec = g.dim() == H.dim() - 1
+    x = torch.cholesky_solve(g.unsqueeze(-1) if vec else g, L)
+    x = x.squeeze(-1) if vec else x
+    ok = (info == 0).reshape(info.shape + (1,) * (x.dim() - info.dim()))
+    return torch.where(ok, x, torch.full_like(x, float("nan")))
+
+
+def _lm_step_cg(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
+                inlier: torch.Tensor, prob: BAProblem, cam_model: str,
+                chi2_th: float, use_robust: bool, pose_stride: int,
+                cg_iters: int = 64):
+    """One damped LM step solving the reduced camera system matrix-free:
+    the Schur complement is applied as gathers and segment sums inside a
+    block-Jacobi preconditioned conjugate-gradient solve of fixed length
+    (updates frozen once the residual falls below 1e-7 of the start).
+    Needs the window-contiguous layout kf_idx[f] == f // pose_stride."""
+    dtype, dev = points.dtype, points.device
+    K = poses.t.shape[0]
+    F = prob.kf_idx.shape[0]
+    if pose_stride * K != F:
+        raise ValueError(f"pose_stride {pose_stride} x K {K} != F {F}")
+
+    r, Jp, Jl, depth_ok = _eval_factors(poses, points, prob, cam_model)
+    active = prob.valid & inlier & depth_ok
+    chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
+    w_rob = (huber_weight(chi2, _factor_chi2_th(prob, chi2_th))
+             if use_robust else torch.ones_like(chi2))
+    w = torch.where(active, w_rob * prob.inv_sigma2, torch.zeros_like(chi2))
+
+    Jpw = Jp * w[:, None, None]
+    Hll_f = torch.einsum("fik,fil->fkl", Jl * w[:, None, None], Jl)
+    Hpl_f = torch.einsum("fik,fil->fkl", Jpw, Jl)              # (F,6,3)
+    gp_f = torch.einsum("fik,fi->fk", Jpw, r)
+    gl_f = torch.einsum("fik,fi->fk", Jl * w[:, None, None], r)
+
+    def pose_sum(x):
+        return x.reshape((K, pose_stride) + x.shape[1:]).sum(dim=1)
+
+    Hpp = pose_sum(torch.einsum("fik,fil->fkl", Jpw, Jp))      # (K,6,6)
+    gp = pose_sum(gp_f)
+
+    fidx = torch.clamp(prob.lm_factor_idx.long(), 0, F - 1)    # (M,O)
+    vmf = prob.lm_factor_valid.to(dtype)
+    Hll = torch.einsum("mo,moij->mij", vmf, Hll_f[fidx])
+    gl = torch.einsum("mo,moi->mi", vmf, gl_f[fidx])
+
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hll_d = Hll + lam * Hll * eye3 + 1e-8 * eye3
+    fixl = prob.fixed_point[:, None, None]
+    Hll_d = torch.where(fixl, eye3, Hll_d)
+    gl = torch.where(prob.fixed_point[:, None], zero, gl)
+    Hll_inv = torch.where(fixl, zero, inv3x3(Hll_d))
+
+    fp = prob.fixed_pose
+    kf = prob.kf_idx.long()
+    mp = prob.mp_idx.long()
+    Hinv_of_f = Hll_inv[mp]                                    # (F,3,3)
+    corr = torch.einsum("fik,fkl,fl->fi", Hpl_f, Hinv_of_f, gl[mp])
+    g_r = torch.where(fp[:, None], zero, gp - pose_sum(corr))
+
+    # block-Jacobi preconditioner from the exact diagonal of S (each
+    # landmark sees a pose through at most one factor in this layout),
+    # formed and factored in float64: in float32 the cancellation in
+    # Hpp - sum D_f can leave an ill-conditioned pose block indefinite,
+    # and its NaN inverse stalls the whole CG (ROADMAP C9)
+    f64 = torch.float64
+    D_f = torch.einsum("fik,fkl,fjl->fij", Hpl_f.to(f64),
+                       Hinv_of_f.to(f64), Hpl_f.to(f64))
+    S_diag = Hpp.to(f64) - pose_sum(D_f)
+    dvec = torch.diagonal(S_diag, dim1=-2, dim2=-1)
+    eye6 = torch.eye(6, dtype=f64, device=dev)
+    S_diag = S_diag + (lam.to(f64) * dvec + 1e-8)[:, :, None] * eye6
+    S_diag = torch.where(fp[:, None, None], eye6, S_diag)
+    Minv = solve_pos(S_diag, eye6.expand(S_diag.shape)).to(dtype)
+    damp = (lam.to(f64) * dvec + 1e-8).to(dtype)
+
+    def matvec(v):
+        v = torch.where(fp[:, None], zero, v)
+        t1 = torch.einsum("fki,fk->fi", Hpl_f, v[kf])          # (F,3)
+        s_m = torch.einsum("mo,moi->mi", vmf, t1[fidx])        # (M,3)
+        y = torch.einsum("mij,mj->mi", Hll_inv, s_m)
+        z = torch.einsum("fik,fk->fi", Hpl_f, y[mp])           # (F,6)
+        Sv = torch.einsum("kij,kj->ki", Hpp, v) - pose_sum(z) + damp * v
+        return torch.where(fp[:, None], v, Sv)
+
+    def precon(x):
+        return torch.einsum("kij,kj->ki", Minv, x)
+
+    b = -g_r
+    x = torch.zeros_like(b)
+    res = b
+    p = precon(res)
+    rz = torch.sum(res * p)
+    tol = 1e-7 * torch.sqrt(torch.sum(b * b))
+    for _ in range(cg_iters):
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap)
+        alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
+        x2 = x + alpha * p
+        r2 = res - alpha * Ap
+        z2 = precon(r2)
+        rz2 = torch.sum(r2 * z2)
+        beta = torch.where(torch.abs(rz) > 1e-20, rz2 / rz, zero)
+        p2 = z2 + beta * p
+        live = torch.sqrt(torch.sum(r2 * r2)) > tol
+        x = torch.where(live, x2, x)
+        res = torch.where(live, r2, res)
+        p = torch.where(live, p2, p)
+        rz = torch.where(live, rz2, rz)
+    dx_p = torch.where(fp[:, None], zero, x)
+
+    back_f = torch.einsum("fki,fk->fi", Hpl_f, dx_p[kf])
+    back = torch.einsum("mo,moi->mi", vmf, back_f[fidx])
+    dx_l = torch.einsum("mij,mj->mi", Hll_inv, -gl - back)
+    dx_l = torch.where(prob.fixed_point[:, None], zero, dx_l)
     return lie.se3_boxplus(poses, dx_p), points + dx_l, active
 
 
@@ -357,15 +507,23 @@ def inlier_mask(poses, points, prob: BAProblem, cam_model: str,
 
 
 def lm_chunk(poses, points, lam, cost0, inlier, prob: BAProblem,
-             cam_model: str, iters: int, chi2_th: float, use_robust: bool):
+             cam_model: str, iters: int, chi2_th: float, use_robust: bool,
+             pose_stride: int = 0, window_layout: bool = False):
     """Resumable LM: ``iters`` iterations from an explicit (lam, cost)
-    carry, accept decisions on the device. Returns the updated carry
-    (poses, points, lam, cost) and the list of candidate costs."""
+    carry, accept decisions on the device. ``pose_stride > 0`` selects the
+    matrix-free PCG step, else the dense Schur step (``window_layout``
+    its reshape fast path). Returns the updated carry (poses, points,
+    lam, cost) and the list of candidate costs."""
     costs: List[torch.Tensor] = []
     for _ in range(iters):
-        cand_poses, cand_points, _ = _lm_step(
-            poses, points, lam, inlier, prob, cam_model, chi2_th,
-            use_robust)
+        if pose_stride > 0:
+            cand_poses, cand_points, _ = _lm_step_cg(
+                poses, points, lam, inlier, prob, cam_model, chi2_th,
+                use_robust, pose_stride)
+        else:
+            cand_poses, cand_points, _ = _lm_step(
+                poses, points, lam, inlier, prob, cam_model, chi2_th,
+                use_robust, window_layout)
         cost1 = lm_cost(cand_poses, cand_points, inlier, prob, cam_model,
                         chi2_th)
         finite = (torch.isfinite(cand_poses.t).all()
@@ -384,33 +542,32 @@ def lm_chunk(poses, points, lam, cost0, inlier, prob: BAProblem,
 
 
 def _lm_run(poses, points, inlier, prob: BAProblem, cam_model: str,
-            iters: int, chi2_th: float, use_robust: bool):
+            iters: int, chi2_th: float, use_robust: bool,
+            window_layout: bool = False):
     cost0 = lm_cost(poses, points, inlier, prob, cam_model, chi2_th)
     lam = torch.full((), 1e-4, dtype=points.dtype, device=points.device)
     poses, points, _, _, costs = lm_chunk(
         poses, points, lam, cost0, inlier, prob, cam_model, iters, chi2_th,
-        use_robust)
+        use_robust, window_layout=window_layout)
     return poses, points, costs
 
 
 def bundle_adjustment(prob: BAProblem, cam_model: str = cameras.PINHOLE,
                       iters_first: int = 5, iters_second: int = 10,
-                      chi2_th: float = CHI2_2D, window_layout: bool = True
+                      chi2_th: float = CHI2_2D, window_layout: bool = False
                       ) -> Tuple[lie.SE3, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """Two-phase robust BA: ``iters_first`` Huber-LM iterations, chi2
     re-mask, ``iters_second`` plain iterations. Returns (poses, points,
     inlier mask (F,), candidate costs (iters,))."""
-    if not window_layout:
-        raise NotImplementedError(
-            "visual BA over make_problem's layout (global BA) is not ported "
-            "yet: ROADMAP A13")
     inlier = torch.ones_like(prob.valid)
     poses, points, costs1 = _lm_run(prob.poses, prob.points, inlier, prob,
-                                    cam_model, iters_first, chi2_th, True)
+                                    cam_model, iters_first, chi2_th, True,
+                                    window_layout)
     inlier = inlier_mask(poses, points, prob, cam_model, chi2_th)
     poses, points, costs2 = _lm_run(poses, points, inlier, prob, cam_model,
-                                    iters_second, chi2_th, False)
+                                    iters_second, chi2_th, False,
+                                    window_layout)
     inlier = inlier_mask(poses, points, prob, cam_model, chi2_th)
     return poses, points, inlier, torch.stack(costs1 + costs2)
 
@@ -429,16 +586,12 @@ class ChunkedLM:
     def __init__(self, prob: BAProblem, cam_model: str,
                  iters_first: int = 5, iters_second: int = 10,
                  chunk: int = 3, chi2_th: float = CHI2_2D,
-                 pose_stride: int = 0, window_layout: bool = True):
-        if pose_stride > 0:
-            raise NotImplementedError(
-                "the matrix-free PCG reduced solve (pose_stride > 0) is not "
-                "ported yet: ROADMAP A13")
-        if not window_layout:
-            raise NotImplementedError(
-                "visual BA over make_problem's layout (global BA) is not "
-                "ported yet: ROADMAP A13")
+                 pose_stride: int = 0, window_layout: bool = False):
         self.prob = prob
+        # pose_stride > 0: the matrix-free PCG step (global BA over the
+        # observation_triples layout at grown capacities)
+        self.pose_stride = pose_stride
+        self.window_layout = window_layout
         self.cam_model = cam_model
         self.chi2_th = chi2_th
         self.poses = prob.poses
@@ -466,7 +619,8 @@ class ChunkedLM:
         n = min(self.chunk, self.left[self.phase])
         self.poses, self.points, self.lam, self.cost, _ = lm_chunk(
             self.poses, self.points, self.lam, self.cost, self.inlier,
-            self.prob, self.cam_model, n, self.chi2_th, self.phase == 0)
+            self.prob, self.cam_model, n, self.chi2_th, self.phase == 0,
+            self.pose_stride, self.window_layout)
         self.left[self.phase] -= n
         if self.left[self.phase] <= 0:
             self.phase += 1

@@ -20,8 +20,9 @@ from torch.func import jacfwd
 from .. import cameras, lie
 from ..imu.preintegration import ImuBias, ImuCalib, Preintegrated, gravity_vec
 from .pose_opt import _residual_and_jac
+from .ba import solve_pos
 from .robust import CHI2_2D, huber_rho, huber_weight
-from .vi_ba import _inertial_res, solve_pos
+from .vi_ba import _inertial_res
 
 
 def _select(ok, a: lie.SE3, b: lie.SE3) -> lie.SE3:

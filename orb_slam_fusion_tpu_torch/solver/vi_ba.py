@@ -32,7 +32,7 @@ from .. import lie
 from ..imu.factors import inertial_residual
 from ..imu.preintegration import (ImuBias, ImuCalib, Preintegrated,
                                   gravity_vec)
-from .ba import BAProblem, _eval_factors, inv3x3
+from .ba import BAProblem, _eval_factors, inv3x3, solve_pos
 from .robust import huber_rho, huber_weight
 
 
@@ -53,17 +53,6 @@ class InertialFactorBatch(NamedTuple):
     valid: torch.Tensor     # (P,) bool
     pre_bwd: Optional[Preintegrated] = None
     info_bwd: Optional[torch.Tensor] = None
-
-
-def solve_pos(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """x = H^-1 g for a symmetric positive definite H (g a vector or a
-    matrix); NaN where the Cholesky factorization fails, as the reference's
-    ``solve(assume_a="pos")`` gives."""
-    L, info = torch.linalg.cholesky_ex(H)
-    vec = g.dim() == H.dim() - 1
-    x = torch.cholesky_solve(g.unsqueeze(-1) if vec else g, L)
-    x = x.squeeze(-1) if vec else x
-    return torch.where(info == 0, x, torch.full_like(x, float("nan")))
 
 
 def _mv(A, x):

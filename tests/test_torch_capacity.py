@@ -6,7 +6,8 @@ resumable (chunked) LM behind the background local BA.
   scene with culled points and keyframes): every table exact, floats
   included, since these only move and pad rows.
 * ``ChunkedLM`` chunk by chunk against the reference's on the same window
-  problem: phase and remaining iterations exact; after each chunk the cost
+  problem, in the window layout and in the PCG and general layouts of
+  global BA: phase and remaining iterations exact; after each chunk the cost
   rtol 1e-3, poses atol 1e-4 and points atol 2e-3 (the float32 resolution
   of the depth of a landmark the window barely constrains, as in
   test_torch_mapping.py), and the between-phase inlier mask exact.
@@ -142,8 +143,27 @@ def test_chunked_lm_chunk_by_chunk(chunk):
 
 
 def test_chunked_lm_refuses_unported_layouts():
-    _, pt = _window_problems(1)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tba.ChunkedLM(pt, "pinhole", pose_stride=6)
-    with pytest.raises(NotImplementedError):
-        tba.ChunkedLM(pt, "pinhole", window_layout=False)
+    """Both layouts that were refused before global BA was ported now run
+    as the reference's: the matrix-free PCG step (pose_stride = the
+    window's factors per row) and the dense step over the general layout
+    (window_layout=False), chunk by chunk against the JAX package (poses
+    1e-4, points 2e-3 as above, costs 1e-3 relative, inlier masks
+    exact)."""
+    pj, pt = _window_problems(1)
+    stride = pt.kf_idx.shape[0] // pt.poses.t.shape[0]
+    for kw in (dict(pose_stride=stride), dict(window_layout=False)):
+        lj = jba.ChunkedLM(pj, "pinhole", 5, 10, 5, **kw)
+        lt = tba.ChunkedLM(pt, "pinhole", 5, 10, 5, **kw)
+        while not lj.done:
+            assert lj.step() == lt.step()
+            np.testing.assert_allclose(float(lj.cost), float(lt.cost),
+                                       rtol=1e-3)
+            np.testing.assert_allclose(np.asarray(lj.poses.t),
+                                       lt.poses.t.numpy(), atol=1e-4)
+            np.testing.assert_allclose(np.asarray(lj.poses.R),
+                                       lt.poses.R.numpy(), atol=1e-4)
+            np.testing.assert_allclose(np.asarray(lj.points),
+                                       lt.points.numpy(), atol=2e-3)
+            np.testing.assert_array_equal(np.asarray(lj.inlier),
+                                          lt.inlier.numpy())
+        assert lt.done

@@ -412,3 +412,109 @@ def test_stereo_vio_frames_launch_the_kernel(cuda):
     for got, want in seen:
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def _recording_launches(seen):
+    """Wrap the kernel's launcher: every launch also runs the plain
+    version on its own inputs."""
+    launch = mm.masked_match_cuda
+
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
+        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
+                                                       kp_desc)))
+        return out
+    mm.masked_match_cuda = record
+    return launch
+
+
+def test_loop_session_frames_launch_the_kernel(cuda):
+    """The CPU tests' loop session (loop closing on, 256 features) through
+    its blackout on the card: the relocalization frame's guided retry and
+    every tracked frame launch the kernel, each launch agrees with the
+    plain version, and the session recovers on the CPU run's frame."""
+    import chip_smoke
+    from orb_slam_fusion_tpu_torch import sim
+
+    cfg = chip_smoke._config(chip_smoke.LOOP_SESSION_CONFIG)
+    world = sim.make_corridor_world(**chip_smoke.RELOC_WORLD)
+    tr = MonoTracker_(cfg, cuda)
+    seen = []
+    launch = _recording_launches(seen)
+    states = []
+    try:
+        for k in range(48):
+            a = (chip_smoke._empty_features_numpy(cfg.orb.n_features)
+                 if chip_smoke._blacked_out(
+                     k, chip_smoke.LOOP_SESSION_BLACKOUTS)
+                 else sim.render_frame_numpy(
+                     world, k, cfg.cam_params, cfg.image_size,
+                     cfg.orb.n_features, **chip_smoke.RELOC_RENDER))
+            before = len(seen)
+            rec = tr.process_features(sim.features_on(a, cuda),
+                                      float(world.timestamps[k]))
+            states.append(rec.state)
+            if rec.state == "ok":
+                assert len(seen) - before >= 3, (k, len(seen) - before)
+    finally:
+        mm.masked_match_cuda = launch
+    assert states[40:45] == ["lost", "reloc-fail", "reloc-fail",
+                             "reloc-fail", "ok"], states[38:46]
+    for got, want in seen:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def MonoTracker_(cfg, dev):
+    from orb_slam_fusion_tpu_torch.engine import MonoTracker
+    return MonoTracker(cfg, device=dev)
+
+
+def _loop_map(dev):
+    """``chip_smoke``'s loop_correct inputs: the drifted loop map and a
+    facade tracker on ``dev``."""
+    import chip_smoke
+    import torch_fixtures
+    return torch_fixtures.load_loop_map(os.path.join(
+        chip_smoke.GOLDEN_DIR, chip_smoke.LOOP_MAP_FILE), dev)
+
+
+def test_loop_closer_on_card_matches_cpu(cuda):
+    """The loop closer on the drifted 20-keyframe loop map: the card closes
+    the loop on the keyframe the CPU does, with the same loop edge and
+    funnel counters, and corrected keyframe poses within 1e-3."""
+    import torch_fixtures
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = torch_fixtures.close_loop_map(*_loop_map(dev))
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card["closed_at"] == cpu["closed_at"] is not None
+    assert card["edge"] == cpu["edge"]
+    assert {k: v for k, v in card["stats"].items() if k != "best_score_max"
+            } == {k: v for k, v in cpu["stats"].items()
+                  if k != "best_score_max"}
+    np.testing.assert_allclose(card["R"], cpu["R"], atol=1e-3)
+    np.testing.assert_allclose(card["t"], cpu["t"], atol=1e-3)
+
+
+def test_global_ba_pcg_on_card_matches_cpu(cuda):
+    """The matrix-free PCG global BA (``ChunkedLM(pose_stride > 0)``) on
+    the CPU tests' problem: the card and the CPU accept the same steps and
+    end within 5e-4 (float32 CG in another summation order)."""
+    import torch_fixtures
+    from orb_slam_fusion_tpu_torch.solver import ba
+
+    a = torch_fixtures.ba_problem_arrays(K=16, nf=96, M=256, spacing=0.1,
+                                         n_fixed=2)
+    res = {}
+    for dev in ("cpu", cuda):
+        prob = torch_fixtures.ba_problem(a, dev)
+        lm = ba.ChunkedLM(prob, "pinhole", 2, 3, chunk=2, pose_stride=96)
+        while not lm.step():
+            pass
+        res[str(dev)] = (lm.poses.t.cpu().numpy(), lm.points.cpu().numpy(),
+                         lm.inlier.cpu().numpy())
+    cpu, card = res["cpu"], res[str(cuda)]
+    np.testing.assert_array_equal(card[2], cpu[2])
+    np.testing.assert_allclose(card[0], cpu[0], atol=5e-4)
+    np.testing.assert_allclose(card[1], cpu[1], atol=5e-4, rtol=1e-4)

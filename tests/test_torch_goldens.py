@@ -228,3 +228,126 @@ def test_stereo_vio_solver_snapshot_is_small_and_complete():
         "0.inertial_init", "1.visual_inertial_ba", "0.visual_inertial_ba",
         "1.inertial_init", "2.visual_inertial_ba"]
     assert int(z["stage1.frame"]) < int(z["stage2.frame"])
+
+
+LOOP_GOLDENS = {
+    "atlas_session_480x752.json": dict(
+        config={}, world=chip_smoke.ATLAS_WORLD,
+        render=chip_smoke.ATLAS_RENDER, blackouts=chip_smoke.ATLAS_BLACKOUTS,
+        grace=chip_smoke.ATLAS_GRACE),
+    "reloc_session_480x752.json": dict(
+        config={}, world=chip_smoke.RELOC_WORLD,
+        render=chip_smoke.RELOC_RENDER, blackouts=chip_smoke.RELOC_BLACKOUTS,
+        grace=None),
+    "loop_session_480x752.json": dict(
+        config=chip_smoke.LOOP_SESSION_CONFIG, world=chip_smoke.RELOC_WORLD,
+        render=chip_smoke.RELOC_RENDER,
+        blackouts=chip_smoke.LOOP_SESSION_BLACKOUTS, grace=None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOOP_GOLDENS))
+def test_loop_goldens_match_chip_smoke(name):
+    """The monocular loop-closing goldens carry ``chip_smoke.py``'s
+    settings, record the events their phases gate on, and the port's sim
+    regenerates their inputs (a blacked-out frame included)."""
+    g = _load(name)
+    want = LOOP_GOLDENS[name]
+    assert g["config"] == json.loads(json.dumps(want["config"]))
+    assert g["world"] == want["world"] and g["render"] == want["render"]
+    assert g["blackouts"] == [list(b) for b in want["blackouts"]]
+    assert g["grace"] == want["grace"]
+    cfg = chip_smoke._config(g["config"])
+    world = sim.make_corridor_world(**g["world"])
+    make = chip_smoke._mono_loop_make(world, cfg, g["render"],
+                                      [tuple(b) for b in g["blackouts"]],
+                                      "cpu")
+    for k in (0, g["blackouts"][0][0], len(g["frames"]) - 1):
+        assert make(k)[2] == g["frames"][k]["inputs_sha256"], k
+    first, merge = chip_smoke._loop_events(g["frames"])
+    if name.startswith("atlas"):
+        assert (first, merge) == (63, 73) and g["archived"] == 0
+    else:
+        assert first is None and merge is None
+
+
+def test_stereo_vio_atlas_golden_matches_chip_smoke():
+    g = _load("stereo_vio_atlas_session_480x752.json")
+    assert g["config"] == {} and g["seq"] == chip_smoke.VIO_ATLAS_SEQ
+    assert g["gt"] == chip_smoke.VIO_ATLAS_GT
+    assert g["render"] == chip_smoke.VIO_ATLAS_RENDER
+    assert g["blackouts"] == [list(b) for b in chip_smoke.VIO_ATLAS_BLACKOUTS]
+    T, fps = g["gt"]["n_frames"], g["gt"]["fps"]
+    seq = sim.vio_from_gt_trajectory(*chip_smoke._circle_gt(T, fps),
+                                     **g["seq"])
+    cfg = chip_smoke._config(g["config"])
+    nf = cfg.orb.n_features
+    for k in (0, 58, T - 1):
+        if chip_smoke._blacked_out(k, chip_smoke.VIO_ATLAS_BLACKOUTS):
+            pair = (chip_smoke._empty_features_numpy(nf),) * 2
+        else:
+            pair = sim.render_stereo_frame_numpy(
+                seq.world, k, cfg.cam_params, cfg.image_size, nf,
+                g["baseline"], **g["render"])
+        assert (chip_smoke._feats_sha(*pair)
+                + chip_smoke._sha(*chip_smoke._imu_of(seq, k))
+                == g["frames"][k]["inputs_sha256"]), k
+    assert chip_smoke._loop_events(g["frames"]) == (63, 72)
+    assert g["inertial_tables"]["n"] == [g["n_kf"]] * 5
+    # the carried loop closures are the ones this run closes on those
+    # frames, from its settings
+    from test_torch_helpers import load_pickle
+    snap = load_pickle("vio_loop_closures.pkl.gz")
+    assert snap["config"] == g["config"]
+    for c in snap["closures"]:
+        k = c["frame"]
+        assert g["frames"][k]["closed"] == c["closed"] == (
+            g["frames"][k - 1]["closed"] + 1), k
+        assert c["kf"] == g["frames"][k]["n_kf"] - 1, k
+
+
+def test_loop_map_snapshot_is_the_reference_build(tmp_path, monkeypatch):
+    """``loop_map_20kf.npz`` holds ``test_loop_closing_e2e.py``'s drifted
+    map as the JAX package builds it today, ``loop_closer_steps.pkl.gz``
+    that test's aliased corridor and the tree vocabulary the JAX package
+    trains on the drifted map, and the snapshots this slice adds stay
+    small (8 MB in all)."""
+    import test_loop_closing_e2e as e2e
+    from orb_slam_fusion_tpu.place.tree_vocabulary import (
+        save_tree_binary, train_vocabulary)
+    from test_torch_helpers import jax_map_to_numpy, load_pickle
+
+    def same_map(m, fields):
+        for k, v in jax_map_to_numpy(m).items():
+            for a, b in zip(*((fields[k], v) if k == "kf_pose"
+                              else ((fields[k],), (v,)))):
+                np.testing.assert_array_equal(a, b, err_msg=k)
+
+    m, gt, _, _ = e2e.build_drifted_loop_map()
+    z = np.load(GOLDENS / chip_smoke.LOOP_MAP_FILE)
+    fields = {k[4:]: z[k] for k in z.files if k.startswith("map.")}
+    fields["kf_pose"] = (fields.pop("kf_pose.R"), fields.pop("kf_pose.t"))
+    same_map(m, fields)
+    assert int(z["closed_at"]) == 18
+    rec = load_pickle("loop_closer_steps.pkl.gz")
+    K = int(m.n_kf)
+    path = tmp_path / "voc.bin"
+    save_tree_binary(str(path), train_vocabulary(
+        np.asarray(m.kf_desc[:K]).reshape(-1, 8)[:2000], k=8, levels=3,
+        seed=1), levels=3)
+    assert path.read_bytes() == rec["tree_vocab_bin"]
+    captured = {}
+    monkeypatch.setattr(e2e, "drive_loop_closer",
+                        lambda c, t, m, K: captured.update(m=m))
+    e2e.test_aliased_single_hit_rejected()
+    same_map(captured["m"], rec["aliased_map"])
+    assert [s["fired"] for s in rec["flat"]["steps"]] == [
+        False, False, False, True, False]
+    assert not any(s["fired"] for s in rec["aliased"]["steps"])
+    new = ["atlas_merge_step.pkl.gz", "reloc_step.pkl.gz",
+           "vio_merge_step.pkl.gz", "vio_loop_closures.pkl.gz",
+           "loop_closer_steps.pkl.gz", chip_smoke.LOOP_MAP_FILE,
+           "atlas_session_480x752.json", "reloc_session_480x752.json",
+           "loop_session_480x752.json",
+           "stereo_vio_atlas_session_480x752.json"]
+    assert sum((GOLDENS / n).stat().st_size for n in new) <= 8e6

@@ -2,7 +2,8 @@
 
 * The port and chip_smoke.py import no JAX and nothing of the JAX package,
   not even lazily: a fresh interpreter with both blocked imports every
-  module of the port and chip_smoke's module-level code.
+  module of the port, chip_smoke's module-level code and the test fixtures
+  it loads (``tests/torch_fixtures.py``).
 * A source scan finds no such import anywhere in them.
 * Entry points that create tensors (the session's ``MonoTracker``, the
   port's ``sim.render_frame`` and ``prng.uniform`` included) run on CUDA
@@ -42,6 +43,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert callable(chip_smoke.main)
+assert chip_smoke._fixtures().ba_problem_arrays
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "orb_slam_fusion_tpu" or m.startswith("orb_slam_fusion_tpu.")]
 assert all(sys.modules[m] is None for m in bad), bad
@@ -68,7 +70,8 @@ def _imports(path):
 
 
 def test_source_scan_finds_no_jax_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "torch_fixtures.py"]
     assert len(files) >= 20
     for f in files:
         for name in _imports(f):
@@ -157,5 +160,122 @@ def test_inertial_entry_points_refuse_cpu_without_device(monkeypatch):
     tr = StereoVioTracker(cfg, 0.11, calib, device="cpu")
     assert tr.calib.Tbc_R.device.type == "cpu"
     assert tr.bias.gyro.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A13"):
-        tr._on_maps_merged(None, 0, None)
+    # the inertial merge is ported: merging the active map's two keyframes
+    # behind three archived visual ones re-homes the tables on the CPU
+    from orb_slam_fusion_tpu_torch.map.atlas import ArchivedMap
+    old = make_empty_map(8, 16, 4, device="cpu")
+    old = old._replace(kf_timestamp=torch.arange(8, dtype=torch.float32))
+    tr.kf_vel = [np.ones(3, np.float32), 2 * np.ones(3, np.float32)]
+    tr.kf_bias = [zero_bias("cpu")] * 2
+    tr.kf_pre = [None, None]
+    tr.kf_time = [5.0, 6.0]
+    tr.kf_raw = [None, None]
+    tr.map = tr.map._replace(n_kf=torch.tensor(5, dtype=torch.int32))
+    S = lie.Sim3(torch.tensor(2.0), torch.eye(3), torch.zeros(3))
+    tr._on_maps_merged(ArchivedMap(old, None, None, None), 3, S)
+    assert tr.kf_time == [0.0, 1.0, 2.0, 5.0, 6.0]
+    np.testing.assert_array_equal(tr.kf_vel[4], [4.0, 4.0, 4.0])
+    assert tr.cur_vel.device.type == "cpu"
+    assert tr.kf_bias[0].gyro.device.type == "cpu"
+
+
+def test_place_and_loop_entry_points_refuse_cpu_without_device(
+        monkeypatch, tmp_path):
+    """The vocabularies, the loop closer, the Sim3 identity and the
+    vocabulary loaders: CUDA unless told otherwise."""
+    import numpy as np
+    from orb_slam_fusion_tpu_torch.engine.loop_closing import LoopCloser
+    from orb_slam_fusion_tpu_torch.place import (
+        load_tree_binary, make_vocabulary, save_tree_binary,
+        train_vocabulary)
+    from orb_slam_fusion_tpu_torch.place.vocabulary import (
+        load_vocabulary_binary, save_vocabulary_binary)
+    desc = np.random.RandomState(0).randint(
+        0, 2 ** 32, (64, 8), dtype=np.uint64).astype(np.uint32)
+    tree = train_vocabulary(desc, k=4, levels=2, device="cpu")
+    save_tree_binary(str(tmp_path / "t.bin"), tree, 2)
+    save_vocabulary_binary(str(tmp_path / "v.bin"),
+                           make_vocabulary(16, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SlamConfig(orb=OrbParams(n_features=16), max_keyframes=8)
+    calls = [
+        lambda: make_vocabulary(16),
+        lambda: train_vocabulary(desc, k=4, levels=2),
+        lambda: load_tree_binary(str(tmp_path / "t.bin")),
+        lambda: load_vocabulary_binary(str(tmp_path / "v.bin")),
+        lambda: LoopCloser(cfg, 8, 16),
+        lambda: lie.sim3_identity(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    lc = LoopCloser(cfg, 8, 16, device="cpu")
+    assert lc.db.bow.device.type == "cpu"
+    assert load_tree_binary(str(tmp_path / "t.bin"), "cpu")[1] == 2
+
+
+def test_every_tracker_runs_at_the_default_config():
+    """Every tracker of the port constructs at ``SlamConfig()`` as is
+    (loop closing on: a loop closer, its database and an atlas; the
+    fisheye rigs with a Kannala-Brandt camera in place of the default
+    pinhole one) and runs
+    frames through its entry point: two empty frames each, and two
+    frames of the stereo e2e sequence through ``StereoTracker`` (its
+    bootstrap and one tracked frame), whose bootstrap keyframe enters the
+    database."""
+    import numpy as np
+    import chip_smoke
+    from orb_slam_fusion_tpu_torch.engine import (FisheyeStereoVioTracker,
+                                                  StereoVioTracker,
+                                                  VioTracker)
+    from orb_slam_fusion_tpu_torch.engine.stereo_tracker import (
+        FisheyeStereoTracker, RgbdTracker, StereoTracker)
+    from orb_slam_fusion_tpu_torch.imu.preintegration import make_calib
+    cfg = SlamConfig()
+    calib = make_calib(device="cpu")
+    kb8 = (190.0, 190.0, 256.0, 256.0, 0.0, 0.0, 0.0, 0.0)
+    fcfg = cfg._replace(cam_model="kannala_brandt8", cam_params=kb8)
+    nf = cfg.orb.n_features
+    empty = sim.features_on(chip_smoke._empty_features_numpy(nf), "cpu")
+    imu = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+           np.zeros(0))
+    trackers = {
+        "mono": (MonoTracker(cfg, device="cpu"),
+                 lambda t, k: t.process_features(empty, 0.05 * k)),
+        "stereo": (StereoTracker(cfg, 0.11, device="cpu"),
+                   lambda t, k: t.process_stereo_features(empty, empty,
+                                                          0.05 * k)),
+        "rgbd": (RgbdTracker(cfg, 0.08, device="cpu"),
+                 lambda t, k: t.process_rgbd_features(
+                     empty, torch.zeros(nf), 0.05 * k)),
+        "fisheye_stereo": (FisheyeStereoTracker(fcfg, kb8, np.eye(4),
+                                                device="cpu"),
+                           lambda t, k: t.process_stereo_features(
+                               empty, empty, 0.05 * k)),
+        "vio": (VioTracker(cfg, calib, device="cpu"),
+                lambda t, k: t.process_frame_imu(empty, 0.05 * k, *imu)),
+        "stereo_vio": (StereoVioTracker(cfg, 0.11, calib, device="cpu"),
+                       lambda t, k: t.process_stereo_imu(
+                           empty, empty, 0.05 * k, *imu)),
+        "fisheye_stereo_vio": (FisheyeStereoVioTracker(
+            fcfg, kb8, np.eye(4), calib, device="cpu"),
+            lambda t, k: t.process_stereo_imu(empty, empty, 0.05 * k,
+                                              *imu)),
+    }
+    for name, (tr, step) in trackers.items():
+        assert tr.loop_closer is not None and tr.enable_atlas, name
+        for k in range(2):
+            step(tr, k)
+        assert tr.state.name in ("NO_IMAGES", "NOT_INITIALIZED"), name
+    world = sim.make_corridor_world(**chip_smoke.STEREO_WORLD)
+    tr = StereoTracker(cfg, chip_smoke.STEREO_BASELINE, device="cpu")
+    r = dict(chip_smoke.STEREO_RENDER, n_features=nf)
+    r.pop("n_features")
+    for k in range(2):
+        fL, fR = sim.render_stereo_frame(world, k, cfg.cam_params,
+                                         cfg.image_size, nf,
+                                         chip_smoke.STEREO_BASELINE,
+                                         device="cpu", **r)
+        rec = tr.process_stereo_features(fL, fR, float(world.timestamps[k]))
+        assert rec.state in ("init-done", "ok"), (k, rec.state)
+    assert bool(tr.loop_closer.db.present[0])

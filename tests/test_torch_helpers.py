@@ -221,12 +221,56 @@ def jax_inertial_state(tr):
         last_frame_time=tr._last_frame_time)
 
 
+def _sim3_np(S):
+    return (np.asarray(S.s), np.asarray(S.R), np.asarray(S.t))
+
+
+def jax_loop_state(tr):
+    """A reference tracker's loop closer, atlas and relocalization state
+    in the format of ``convert.tracker_state_from_numpy`` (empty for a
+    tracker without a loop closer)."""
+    lc = getattr(tr, "loop_closer", None)
+    if lc is None:
+        return {}
+    pd = lc._pending_detect
+    atlas = []
+    for a in tr.atlas.archived:
+        ai = a.inertial
+        if ai is not None:
+            ai = dict(kf_vel=[np.asarray(v) for v in ai["kf_vel"]],
+                      kf_bias=[_bias_np(b) for b in ai["kf_bias"]],
+                      kf_pre=[jax_preintegrated_to_numpy(p)
+                              for p in ai["kf_pre"]],
+                      kf_time=list(ai["kf_time"]),
+                      kf_raw=[None if r is None
+                              else tuple(np.asarray(x) for x in r)
+                              for r in ai["kf_raw"]])
+        atlas.append(dict(map=jax_map_to_numpy(a.map),
+                          bow=np.asarray(a.bow),
+                          present=np.asarray(a.present), inertial=ai))
+    return dict(
+        loop_closer=dict(
+            bow=np.asarray(lc.db.bow), present=np.asarray(lc.db.present),
+            cons_groups=[(sorted(g), c) for g, c in lc._cons_groups],
+            loop_edges=[(i, j, _sim3_np(S)) for i, j, S in lc.loop_edges],
+            stats=dict(lc.stats), last_loop_kf=lc.last_loop_kf,
+            num_closed=lc.num_closed,
+            pending_detect=None if pd is None else (
+                int(pd[0]), np.asarray(pd[1]), np.asarray(pd[2]),
+                np.asarray(pd[3]), np.asarray(pd[4]))),
+        atlas=atlas, reloc_grace_frames=tr.reloc_grace_frames,
+        merge_cooldown=tr._merge_cooldown)
+
+
 def jax_tracker_state(tr):
     """A reference MonoTracker's between-frame state as numpy, in the
     format of ``convert.tracker_state_from_numpy`` (with the IMU state of
-    an inertial tracker). Drains a background local BA in flight first (it
-    does not travel)."""
+    an inertial tracker, and the loop closer and atlas of a tracker with
+    loop closing). Drains a background local BA, and a global BA, in
+    flight first (they do not travel)."""
     tr._lba_drain()
+    if getattr(tr, "loop_closer", None) is not None:
+        tr.loop_closer.gba_drain(tr)
     dev_stat = tr._last_kf_tracked_dev
     return dict(
         map=jax_map_to_numpy(tr.map), state=tr.state.name,
@@ -245,4 +289,159 @@ def jax_tracker_state(tr):
                     for r in tr.trajectory],
         kf_uright=(np.asarray(tr.kf_uright) if hasattr(tr, "kf_uright")
                    else None),
-        **(jax_inertial_state(tr) if hasattr(tr, "calib") else {}))
+        **(jax_inertial_state(tr) if hasattr(tr, "calib") else {}),
+        **jax_loop_state(tr))
+
+
+_KF_PAD = {"kf_obs_mp": -1, "kf_uright": -1.0}
+
+
+def _trim_map(m):
+    """Map fields cut to their live rows (n_kf keyframes, n_mp points)."""
+    K, M = int(m["n_kf"]), int(m["n_mp"])
+    out = dict(m, max_kf=m["kf_valid"].shape[0],
+               max_mp=m["mp_valid"].shape[0])
+    for k, v in m.items():
+        if k == "kf_pose":
+            out[k] = (v[0][:K], v[1][:K])
+        elif k.startswith("kf_"):
+            out[k] = v[:K]
+        elif k.startswith("mp_"):
+            out[k] = v[:M]
+    return out
+
+
+def _pad_rows(v, n, fill):
+    v = np.asarray(v)
+    pad = np.full((n - v.shape[0],) + v.shape[1:], fill, v.dtype)
+    return np.concatenate([v, pad])
+
+
+def _untrim_map(m):
+    Kc, Mc = int(m["max_kf"]), int(m["max_mp"])
+    out = {}
+    for k, v in m.items():
+        if k in ("max_kf", "max_mp"):
+            continue
+        if k == "kf_pose":
+            R = _pad_rows(v[0], Kc, 0.0)
+            R[len(v[0]):] = np.eye(3, dtype=R.dtype)
+            out[k] = (R, _pad_rows(v[1], Kc, 0.0))
+        elif k.startswith("kf_"):
+            out[k] = _pad_rows(v, Kc, _KF_PAD.get(k, 0))
+        elif k == "mp_max_dist":
+            out[k] = _pad_rows(v, Mc, 1e9)
+        elif k.startswith("mp_"):
+            out[k] = _pad_rows(v, Mc, 0)
+        else:
+            out[k] = v
+    return out
+
+
+def trim_state(st):
+    """A tracker state (``jax_tracker_state``) with every keyframe and
+    point table cut to its live rows, for a compact snapshot file;
+    ``untrim_state`` pads it back."""
+    st = dict(st, map=_trim_map(st["map"]))
+    if st.get("kf_uright") is not None:
+        st["kf_max"] = st["kf_uright"].shape[0]
+        st["kf_uright"] = st["kf_uright"][:int(st["map"]["n_kf"])]
+    if st.get("loop_closer") is not None:
+        lc = dict(st["loop_closer"])
+        lc["kf_max"] = lc["bow"].shape[0]
+        n = int(st["map"]["n_kf"])
+        lc["bow"], lc["present"] = lc["bow"][:n], lc["present"][:n]
+        st["loop_closer"] = lc
+        st["atlas"] = [dict(a, map=_trim_map(a["map"]),
+                            bow=a["bow"][:int(a["map"]["n_kf"])],
+                            present=a["present"][:int(a["map"]["n_kf"])],
+                            kf_max=a["bow"].shape[0])
+                       for a in st["atlas"]]
+    return st
+
+
+def untrim_state(st):
+    st = dict(st, map=_untrim_map(st["map"]))
+    if st.get("kf_uright") is not None:
+        st["kf_uright"] = _pad_rows(st.pop("kf_uright"), st.pop("kf_max"),
+                                    -1.0)
+    if st.get("loop_closer") is not None:
+        lc = dict(st["loop_closer"])
+        K = lc.pop("kf_max")
+        lc["bow"] = _pad_rows(lc["bow"], K, 0.0)
+        lc["present"] = _pad_rows(lc["present"], K, False)
+        st["loop_closer"] = lc
+        st["atlas"] = [dict(a, map=_untrim_map(a["map"]),
+                            bow=_pad_rows(a["bow"], a["kf_max"], 0.0),
+                            present=_pad_rows(a["present"], a["kf_max"],
+                                              False))
+                       for a in st["atlas"]]
+    return st
+
+
+GOLDENS = __import__("pathlib").Path(__file__).resolve().parent / \
+    "torch_goldens"
+
+
+def load_pickle(name):
+    """A gzipped pickle under ``tests/torch_goldens/`` as written."""
+    import gzip
+    import pickle
+    with gzip.open(GOLDENS / name, "rb") as fh:
+        return pickle.load(fh)
+
+
+def load_carried(name):
+    """A carried-state snapshot written by ``make_torch_goldens.py``: the
+    reference's state before one frame (padded back to its capacities),
+    the frame's inputs, and the reference's state and record after it."""
+    snap = load_pickle(name)
+    snap["before"] = untrim_state(snap["before"])
+    return snap
+
+
+def table_digest(a):
+    """A stand-in for an exact table in a snapshot: its dtype, shape and
+    SHA-256 (``assert_live_tables`` compares the port's rows to it)."""
+    import hashlib
+    a = np.ascontiguousarray(a)
+    return dict(dtype=str(a.dtype), shape=a.shape,
+                sha256=hashlib.sha256(a.tobytes()).hexdigest())
+
+
+def assert_live_tables(after, mt, atol=1e-4, skip=()):
+    """The live rows of a port map against a trimmed reference map:
+    integer and boolean tables exactly, descriptors exactly (or their
+    ``table_digest``), floats within atol."""
+    n_kf, n_mp = int(after["n_kf"]), int(after["n_mp"])
+    assert int(mt["n_kf"]) == n_kf and int(mt["n_mp"]) == n_mp
+    for k, a in after.items():
+        if k in ("max_kf", "max_mp", "n_kf", "n_mp") or k in skip:
+            continue
+        b = mt[k]
+        if k == "kf_pose":
+            for x, y in zip(a, b):
+                np.testing.assert_allclose(y[:n_kf], x, atol=atol,
+                                           err_msg=k)
+            continue
+        b = b[:n_kf] if k.startswith("kf_") else b[:n_mp]
+        if isinstance(a, dict):
+            assert table_digest(np.asarray(b, a["dtype"])) == a, k
+        elif np.issubdtype(np.asarray(a).dtype, np.floating):
+            np.testing.assert_allclose(b, a, atol=atol, rtol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+def with_threads(n, fn):
+    """``fn()`` with ``n`` torch threads, the count restored after (test
+    files set 1 when imported: a test's thread count decides some float32
+    sums, and xdist workers import every file before running any)."""
+    import torch
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        return fn()
+    finally:
+        torch.set_num_threads(before)

@@ -164,8 +164,16 @@ def test_session_ate(runs):
 
 
 def test_constructor_refuses_unported_modes():
-    with pytest.raises(NotImplementedError, match="A13"):
-        MonoTracker(SlamConfig(), device="cpu")
+    # loop closing (A13) is ported: SlamConfig() as is builds a loop closer
+    # whose database and seeded vocabulary are the reference's
+    from orb_slam_fusion_tpu.place import make_vocabulary as j_vocab
+    tr = MonoTracker(SlamConfig(), device="cpu")
+    lc = tr.loop_closer
+    assert lc is not None and tr.enable_atlas and len(tr.atlas) == 0
+    assert tuple(lc.db.bow.shape) == (256, 4096)
+    np.testing.assert_array_equal(
+        lc.db.vocab.words.numpy().view(np.uint32),
+        np.asarray(j_vocab(4096).words))
     with pytest.raises(NotImplementedError, match="A15"):
         MonoTracker(SlamConfig(loop_closing=False, mesh_devices=2),
                     device="cpu")

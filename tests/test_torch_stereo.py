@@ -376,8 +376,19 @@ def test_capacity_hooks_move_the_right_u_rows():
     tt._on_kf_grow(9)
     _eq(jt.kf_uright, tt.kf_uright.numpy())
     assert tt.kf_uright.shape == (9, 16)
-    with pytest.raises(NotImplementedError, match="A13"):
-        tt._on_maps_merged(None, 0, None)
+    # a merge that appends the active map's 4 keyframes after 3 archived
+    # ones (the welded map grown to 12 rows): its rows shift by the
+    # offset and the archived rows become monocular (-1), as the
+    # reference's hook moves them
+    jt.map = jt.map._replace(n_kf=jnp.int32(7))
+    jt.map = jt.map._replace(kf_valid=jnp.zeros(12, bool))
+    tt.map = tt.map._replace(n_kf=torch.tensor(7, dtype=torch.int32),
+                             kf_valid=torch.zeros(12, dtype=torch.bool))
+    jt._on_maps_merged(None, 3, None)
+    tt._on_maps_merged(None, 3, None)
+    _eq(jt.kf_uright, tt.kf_uright.numpy())
+    assert tt.kf_uright.shape == (12, 16)
+    assert (tt.kf_uright[:3] == -1).all() and (tt.kf_uright[7:] == -1).all()
 
 
 def _rgbd_inputs(world, k, rng, sim_mod):
