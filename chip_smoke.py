@@ -137,16 +137,18 @@ Phases, each timed:
                masked-match kernel (its matches are dense PyTorch), and its
                count, zeroed before the closer runs, must read 0;
  15. atlas_session - ``MonoTracker(SlamConfig())`` (loop closing on,
-               ``reloc_grace_frames`` 4) on ``test_atlas_merge.py``'s circle
-               (140 frames, blackout 58-67): archive and merge on the
-               golden's frames (63, 73), tracked within 2, keyframes within
-               3, points within 5% and the loops closed as the golden's,
-               ATE within 5 cm;
+               ``reloc_grace_frames`` 4) on the first 110 frames of
+               ``test_atlas_merge.py``'s circle (140 frames, blackout
+               58-67): archive and merge on the golden's frames (63, 73),
+               tracked within 2, keyframes within 3, points within 5% and
+               the loops closed as the golden's prefix, ATE within 5 cm of
+               the golden's over the same frames;
  16. reloc_session - ``MonoTracker(SlamConfig())`` on
-               ``test_relocalization.py``'s arc (120 frames, three 4-frame
-               blackouts): every blackout recovered by relocalization on
+               the first 104 frames of ``test_relocalization.py``'s arc
+               (120 frames, three 4-frame blackouts): every blackout
+               recovered by relocalization on
                the golden's frame, no map archived, the counts as above;
- 17. stereo_vio_atlas_session - this slice's main path:
+ 17. stereo_vio_atlas_session - the loop-closing slice's main path:
                ``StereoVioTracker(SlamConfig(), 0.11, make_calib())`` on
                ``test_inertial_merge.py``'s circle (``vio_from_gt_
                trajectory``, EuRoC-grade IMU noise, blackout 58-67):
@@ -163,7 +165,32 @@ Phases, each timed:
                of the golden's; frame and stage times (``loop_closing``,
                ``relocalize``, ``merge``, ``gba``), a plain and a keyframe
                frame profiled, the last frame's masked-match calls checked;
- 18. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
+ 18. system_session - the port's front door: the EuRoC settings file of
+               ``tests/test_settings.py`` (``SYSTEM_SETTINGS_YAML``: the
+               unrectified pinhole rig, 1200 features, loop closing on)
+               parsed on the card machine without PyYAML, its
+               rectification maps and intrinsics bit-identical to the
+               rig's (``_euroc_rectification``); a mav0 tree written from
+               the stereo-inertial sequence and read back by
+               ``EurocSequence`` exactly; ``System(settings_path,
+               Sensor.IMU_STEREO)`` fed raw 480x752 pairs (rendered at the
+               EuRoC raw intrinsics) through ``track_stereo_imu`` (remap,
+               extraction of both images, association, the tracker) for
+               the golden's frames (``system_session_480x752.json``: 5
+               after its IMU init), every frame's state, inliers,
+               keyframes, points and IMU stage equal to the golden's
+               through frame ``SYSTEM_EXACT_FRAMES - 1`` (as far as the
+               port on the host CPU follows it), then the counts within
+               the C2 bounds; 3 launches on every tracked frame; on three
+               frames the remap and both images' features bit-identical
+               on the card and the host CPU; the three masked-match calls
+               of one more step at N = 1200 checked and timed; the five
+               trajectory writers (a line per frame or valid keyframe),
+               the autosave on ``shutdown()``, a second System restoring
+               it (the map field by field and the inertial state equal),
+               a relocalization (LOST to OK) and localization mode (no
+               keyframe added over 5 frames);
+ 19. report  - one ``{"kernels": [...]}`` JSON line, the card line, and
                the ``{"ok": true, ...}`` line last.
 
 Each path's kernel launches are counted from 0 just before it runs and
@@ -644,6 +671,12 @@ STEREO_FRAMES = 50            # of 70
 RGBD_FRAMES = 40              # of 60
 FISHEYE_MONO_FRAMES = 40      # of 60
 FISHEYE_STEREO_FRAMES = 35    # of 50
+# ...and (with the system session) the mono atlas sessions: every event
+# kept (atlas_session: archive 63, merge 73, the golden's loops on 79 and
+# 103; reloc_session: recoveries on 44, 74, 99), gated against the
+# golden's prefix
+ATLAS_FRAMES = 110            # of 140
+RELOC_FRAMES = 104            # of 120
 VIO_ATE_TOL_M = 0.02
 
 # the loop-closing slice (tests/make_torch_goldens.py writes their goldens
@@ -683,6 +716,78 @@ LOOP_SESSION_CONFIG = dict(ATLAS_TEST_CONFIG, n_features=256,
                            max_map_points=6144)
 LOOP_SESSION_FRAMES = 60
 LOOP_SESSION_BLACKOUTS = ((40, 44),)
+
+# the System front door (phase system_session): tests/test_settings.py's
+# EuRoC settings (EUROC_YAML + CAMERA2_BLOCK: the unrectified pinhole rig,
+# 1200 features, loop closing on), copied here because the script does not
+# import the tests (tests/test_torch_settings.py holds the copy to them).
+# The session reads a mav0 tree written from the stereo-inertial session's
+# sequence (VIO_SEQ) and renders each raw 480x752 pair at the EuRoC raw
+# intrinsics; it runs until SYSTEM_AFTER_INIT frames after the golden's
+# IMU-init frame, at most SYSTEM_MAX_FRAMES (SYSTEM_NO_INIT_FRAMES if the
+# golden initializes no IMU by then).
+SYSTEM_SETTINGS_YAML = """\
+%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: 458.654
+Camera1.fy: 457.296
+Camera1.cx: 367.215
+Camera1.cy: 248.375
+Camera1.k1: -0.28340811
+Camera1.k2: 0.07395907
+Camera1.p1: 0.00019359
+Camera1.p2: 1.76187114e-05
+Camera.width: 752
+Camera.height: 480
+Camera.fps: 20
+Camera.RGB: 1
+Stereo.ThDepth: 60.0
+Stereo.T_c1_c2: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [0.999997256477797,-0.002317135723275,-0.000343393120620,0.110074137800478,
+         0.002312067192432,0.999898048507103,-0.014090668452683,-0.000156612054392,
+         0.000376008102320,0.014089835846691,0.999900662638081,0.000889382785432,
+         0,0,0,1.000000000000000]
+IMU.T_b_c1: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975,
+         0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768,
+         -0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949,
+         0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 1.7e-04
+IMU.NoiseAcc: 2.0e-03
+IMU.GyroWalk: 1.9393e-05
+IMU.AccWalk: 3.e-03
+IMU.Frequency: 200.0
+ORBextractor.nFeatures: 1200
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+Camera2.fx: 457.587
+Camera2.fy: 456.134
+Camera2.cx: 379.999
+Camera2.cy: 255.238
+Camera2.k1: -0.28368365
+Camera2.k2: 0.07451284
+Camera2.p1: -0.00010473
+Camera2.p2: -3.55590700e-05
+"""
+SYSTEM_MAX_FRAMES = 80
+SYSTEM_AFTER_INIT = 5
+SYSTEM_NO_INIT_FRAMES = 40
+SYSTEM_LOCALIZATION_FRAMES = 5
+# the gates against the golden: exact through frame SYSTEM_EXACT_FRAMES - 1
+# (as far as the port on the host CPU follows the golden), then the
+# counts within these bounds (C2)
+SYSTEM_EXACT_FRAMES = 13
+SYSTEM_KF_TOL = 3
+SYSTEM_MP_RTOL = 0.05
 
 
 def _blacked_out(k, blackouts):
@@ -1886,10 +1991,12 @@ def run_atlas_session(dev):
     """MonoTracker(SlamConfig()) on test_atlas_merge.py's circle: the
     blackout loses the map, the grace window archives it, the revisit
     merges it back (phase atlas_session)."""
+    import numpy as np
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
+    from orb_slam_fusion_tpu_torch.io import ate_rmse
 
-    golden = _golden("atlas_session_480x752.json")
+    golden = _golden("atlas_session_480x752.json", ATLAS_FRAMES)
     cfg = SlamConfig()
     world = sim.make_corridor_world(**ATLAS_WORLD)
     tracker = MonoTracker(cfg, device=dev)
@@ -1899,11 +2006,16 @@ def run_atlas_session(dev):
         "atlas_session", tracker, world, tracker.process_features, make,
         golden, with_scale=True)
     _loop_gates("atlas_session", out, golden, states, rows)
-    if len(tracker.atlas) != golden["archived"]:
+    if len(tracker.atlas) != golden["frames"][-1]["archived"]:
         raise RuntimeError("atlas_session ends with another atlas")
-    if abs(ate - golden["ate_m"]) > ATLAS_ATE_TOL_M:
+    # the golden's ATE over the same frames (its prefix)
+    g0 = golden["init_frame"]
+    gtraj = np.asarray(golden["trajectory_tum"])
+    out["golden_ate_m"] = float(ate_rmse(
+        gtraj[g0:, 1:4], sim.gt_positions(world)[g0:len(gtraj)]))
+    if abs(ate - out["golden_ate_m"]) > ATLAS_ATE_TOL_M:
         raise RuntimeError(f"atlas_session ATE {ate} m, the golden's "
-                           f"{golden['ate_m']} m")
+                           f"{out['golden_ate_m']} m")
     print("atlas_session gates passed " + json.dumps(
         {k: out[k] for k in ("tracked", "ate_m", "golden_ate_m",
                              "archive_merge_frames", "loops_closed",
@@ -1919,7 +2031,7 @@ def run_reloc_session(dev):
     from orb_slam_fusion_tpu_torch import sim
     from orb_slam_fusion_tpu_torch.engine import MonoTracker, SlamConfig
 
-    golden = _golden("reloc_session_480x752.json")
+    golden = _golden("reloc_session_480x752.json", RELOC_FRAMES)
     cfg = SlamConfig()
     world = sim.make_corridor_world(**RELOC_WORLD)
     tracker = MonoTracker(cfg, device=dev)
@@ -1945,8 +2057,9 @@ def run_reloc_session(dev):
 
 
 def vio_atlas_session(dev):
-    """This slice's main path as a user builds it: StereoVioTracker(
-    SlamConfig(), 0.11, make_calib()) with ``reloc_grace_frames`` 4, and
+    """The loop-closing slice's main path as a user builds it:
+    StereoVioTracker(SlamConfig(), 0.11, make_calib()) with
+    ``reloc_grace_frames`` 4, and
     test_inertial_merge.py's circle (vio_from_gt_trajectory, EuRoC-grade
     IMU noise, blackout 58-67). Returns (tracker, sequence, make(k) ->
     (inputs, timestamp, input hash), step(inputs, timestamp));
@@ -1987,10 +2100,10 @@ def vio_atlas_session(dev):
 
 
 def run_stereo_vio_atlas_session(dev):
-    """This slice's main path: StereoVioTracker(SlamConfig(), 0.11,
-    make_calib()) on test_inertial_merge.py's circle through the blackout,
-    the archive, the inertial merge and the loops closed after it (phase
-    stereo_vio_atlas_session)."""
+    """The loop-closing slice's main path: StereoVioTracker(SlamConfig(),
+    0.11, make_calib()) on test_inertial_merge.py's circle through the
+    blackout, the archive, the inertial merge and the loops closed after
+    it (phase stereo_vio_atlas_session)."""
     import numpy as np
 
     golden = _golden("stereo_vio_atlas_session_480x752.json")
@@ -2042,6 +2155,335 @@ def run_stereo_vio_atlas_session(dev):
     out["match_calls"] = _session_calls("stereo_vio_atlas_session", tracker,
                                         last[0][0][0])
     return out
+
+
+# -- the System front door ---------------------------------------------------
+
+def write_mav0(root, seq, n_frames):
+    """A EuRoC ``mav0`` tree of the first ``n_frames`` frames of a
+    ``VioSequence``: ``cam0``/``cam1`` ``data.csv`` (nanosecond
+    timestamps, file names; no image files) and ``imu0/data.csv`` (the
+    200 Hz samples up to the last frame, at 9 significant digits, so
+    each float32 reads back exactly). Returns the frames' nanoseconds."""
+    import numpy as np
+    mav = os.path.join(root, "mav0")
+    ns = [int(round(float(t) * 1e9)) for t in seq.world.timestamps[:n_frames]]
+    for cam in ("cam0", "cam1"):
+        os.makedirs(os.path.join(mav, cam, "data"), exist_ok=True)
+        with open(os.path.join(mav, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for n in ns:
+                f.write(f"{n},{n}.png\n")
+    os.makedirs(os.path.join(mav, "imu0"), exist_ok=True)
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],"
+                "w_RS_S_z [rad s^-1],a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],"
+                "a_RS_S_z [m s^-2]\n")
+        for acc, gyro, t in seq.frame_imu[:n_frames - 1]:
+            for a, g, tt in zip(acc, gyro, t):
+                f.write(f"{int(round(float(tt) * 1e9))},"
+                        + ",".join("%.9g" % float(v) for v in
+                                   np.concatenate([g, a])) + "\n")
+    return ns
+
+
+def check_mav0_frames(frames, seq):
+    """The frames read back from ``write_mav0``'s tree against the
+    sequence: timestamps within half a nanosecond (the CSV's unit), IMU
+    windows of the same samples, values exact."""
+    import numpy as np
+    for k, fr in enumerate(frames):
+        if abs(fr.timestamp - float(seq.world.timestamps[k])) > 5e-10:
+            raise RuntimeError(f"mav0 frame {k}: timestamp {fr.timestamp}")
+        acc, gyro, t = _imu_of(seq, k)
+        if not (np.array_equal(fr.imu_acc, acc)
+                and np.array_equal(fr.imu_gyro, gyro)
+                and len(fr.imu_t) == len(t)
+                and np.all(np.abs(fr.imu_t - t) <= 5e-10)):
+            raise RuntimeError(f"mav0 frame {k}: the IMU window differs "
+                               f"from the sequence's")
+
+
+def system_settings_files(root):
+    """The session's settings file (autosave into ``root``) and the
+    restoring one (autoload from it); returns (paths, atlas path)."""
+    atlas = os.path.join(root, "atlas.npz")
+    paths = []
+    for name, line in (("euroc.yaml", "System.SaveAtlasToFile"),
+                       ("euroc_load.yaml", "System.LoadAtlasFromFile")):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            f.write(SYSTEM_SETTINGS_YAML + f'{line}: "{atlas}"\n')
+    return paths, atlas
+
+
+def system_raw_pair(world, k):
+    """Frame k's raw 480x752 pair: the left camera at the EuRoC raw
+    intrinsics, the right one displaced by the stereo baseline."""
+    from orb_slam_fusion_tpu_torch import sim
+    raw_cam = (EUROC_K1[0][0], EUROC_K1[1][1], EUROC_K1[0][2],
+               EUROC_K1[1][2])
+    return (sim.render_image(world, k, raw_cam, (IMG_H, IMG_W)),
+            sim.render_image(world, k, raw_cam, (IMG_H, IMG_W),
+                             pose_override=sim.stereo_right_pose(
+                                 world, k, STEREO_BASELINE)))
+
+
+def _system_features_check(sys_, raw, k, orb):
+    """The remap of frame k's raw pair and both images' features on the
+    card against the host CPU's, bit for bit."""
+    import torch
+    from orb_slam_fusion_tpu_torch.frontend.extractor import extract_features
+    from orb_slam_fusion_tpu_torch.frontend.rectify import remap_stereo_pair
+    card = sys_._rectify(*(sys_._preprocess(a) for a in raw))
+    host = remap_stereo_pair(*(torch.from_numpy(a) for a in raw),
+                             *(torch.from_numpy(m)
+                               for m in sys_.settings.rect_maps))
+    n = []
+    for a, b in zip(card, host):
+        if not torch.equal(a.cpu(), b):
+            raise RuntimeError(f"system_session frame {k}: the remapped "
+                               f"image differs between card and CPU")
+        fc, fh = extract_features(a, orb), extract_features(b, orb)
+        for field in fh._fields:
+            if not torch.equal(getattr(fc, field).cpu(), getattr(fh, field)):
+                raise RuntimeError(f"system_session frame {k}: {field} "
+                                   f"differs between card and CPU")
+        n.append(int(fh.valid.sum()))
+    print(f"system_session frame {k}: remap and features ({n[0]} + {n[1]} "
+          f"keypoints of {orb.n_features}) bit-identical on the card and "
+          f"the host CPU", flush=True)
+    return fc
+
+
+def _file_lines(path):
+    with open(path) as f:
+        return sum(1 for ln in f if ln.strip())
+
+
+def run_system_session(dev):
+    """The port's front door (phase system_session): settings parsed from
+    the reference-format YAML, a mav0 tree read back by ``EurocSequence``,
+    ``System(settings_path, Sensor.IMU_STEREO)`` fed raw pairs through
+    ``track_stereo_imu`` against the JAX System's golden, the trajectory
+    writers, autosave, autoload, relocalization and localization mode."""
+    import copy
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.config import load_settings
+    from orb_slam_fusion_tpu_torch.engine.step import (
+        MATCH_LAUNCHES_PER_FRAME)
+    from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
+    from orb_slam_fusion_tpu_torch.io import EurocSequence
+    from orb_slam_fusion_tpu_torch.map.convert import map_state_to_numpy
+    from orb_slam_fusion_tpu_torch.system import Sensor, System
+
+    golden = _golden("system_session_480x752.json")
+    n_frames = len(golden["frames"])
+    root = tempfile.mkdtemp(prefix="osf_system_")
+    try:
+        (path, load_path), atlas = system_settings_files(root)
+        t0 = time.perf_counter()
+        settings = load_settings(path, "stereo-imu", device=dev)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        maps, cam, _ = _euroc_rectification()
+        if not (all(np.array_equal(a, b) for a, b in
+                    zip(settings.rect_maps, maps))
+                and settings.slam.cam_params == tuple(float(c) for c in cam)):
+            raise RuntimeError("system_session: the settings' rectification "
+                               "differs from the EuRoC rig's")
+        if settings.slam.orb.n_features != 1200 or \
+                not settings.slam.loop_closing:
+            raise RuntimeError("system_session: unexpected SlamConfig")
+        seq = sim.make_vio_sequence(**VIO_SEQ)
+        write_mav0(root, seq, n_frames)
+        frames = list(EurocSequence(root).frames())
+        check_mav0_frames(frames, seq)
+        print(f"system_session: settings parsed in {parse_ms:.3f} ms "
+              f"(rectification maps and intrinsics bit-identical to the "
+              f"rig's), {len(frames)} mav0 frames read back exactly",
+              flush=True)
+
+        sys_ = System(settings_path=path, sensor=Sensor.IMU_STEREO,
+                      device=dev)
+        tracker = sys_.tracker
+        world = seq.world
+        checks = {0, n_frames // 2, n_frames - 1}
+        rows, last = [], {}
+
+        def make(k):
+            fr, raw = frames[k], system_raw_pair(world, k)
+            imu = (fr.imu_acc, fr.imu_gyro, fr.imu_t)
+            return ((raw, imu), fr.timestamp, _sha(*raw) + _sha(*imu))
+
+        def step(inputs, ts):
+            raw, imu = inputs
+            rec = sys_.track_stereo_imu(*raw, ts, *imu)
+            k = len(rows)
+            rows.append(dict(state=rec.state, tracked=int(rec.tracked),
+                             n_kf=int(tracker.map.n_kf),
+                             n_mp=int(tracker.map.n_mp),
+                             imu_stage=int(tracker._imu_stage)))
+            if k in checks:
+                last["feats"] = _system_features_check(sys_, raw, k,
+                                                       tracker.cfg.orb)
+            return rec
+
+        out, states, start, ate = _drive("system_session", tracker, world,
+                                         step, make, golden,
+                                         with_scale=False)
+        out["frames"] = n_frames
+        out["settings_parse_ms"] = parse_ms
+        out["imu_stage_keyframes"] = _vio_stage_keyframes(rows)
+        out["golden_imu_stage_keyframes"] = _vio_stage_keyframes(
+            golden["frames"])
+        out["loops_closed"] = int(tracker.loop_closer.num_closed)
+        # the loop closer's funnel: candidates found, verified, rejected
+        out["loop_stats"] = {k: v for k, v in tracker.loop_closer.stats
+                             .items() if isinstance(v, int)}
+        out["golden_loop_stats"] = golden["loop_stats"]
+        _system_gates(out, golden, rows)
+        if out["launches_tracked"] != (MATCH_LAUNCHES_PER_FRAME
+                                       * out["ok_frames"]):
+            raise RuntimeError(f"system_session: {out['launches_tracked']} "
+                               f"masked-match launches over "
+                               f"{out['ok_frames']} tracked frames")
+        # the kernel at N = 1200: one more tracking step's three calls
+        out["match_calls"] = _session_calls("system_session", tracker,
+                                            last["feats"])
+        # one more frame through the front door under the profiler (the
+        # last pair again, no IMU samples), from copies of the final state
+        inputs, ts, _ = make(n_frames - 1)
+        copies = [copy.deepcopy(sys_) for _ in range(2)]
+        empty = _imu_of(seq, 0)
+        out["profile"] = profile_stages({"system_session frame": (
+            lambda: copies.pop().track_stereo_imu(*inputs[0], ts + 0.05,
+                                                  *empty))},
+            cpu_ops=False)["system_session frame"]
+        del copies
+
+        # the writers: one line per frame, or per valid keyframe
+        n_valid = int(tracker.map.kf_valid.sum())
+        lines = {}
+        for name, fn, want in (
+                ("tum", sys_.save_trajectory_tum, n_frames),
+                ("euroc", sys_.save_trajectory_euroc, n_frames),
+                ("kitti", sys_.save_trajectory_kitti, n_frames),
+                ("kf_tum", sys_.save_keyframe_trajectory_tum, n_valid),
+                ("kf_euroc", sys_.save_keyframe_trajectory_euroc, n_valid)):
+            p = os.path.join(root, f"traj_{name}.txt")
+            fn(p)
+            lines[name] = _file_lines(p)
+            if lines[name] != want:
+                raise RuntimeError(f"system_session: {name} trajectory has "
+                                   f"{lines[name]} lines, expected {want}")
+        out["trajectory_lines"] = lines
+
+        # autosave on shutdown, autoload in a second System
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sys_.shutdown()
+        out["atlas_save_ms"] = (time.perf_counter() - t0) * 1e3
+        if not os.path.exists(atlas):
+            raise RuntimeError("system_session: shutdown wrote no atlas")
+        out["atlas_bytes"] = os.path.getsize(atlas)
+        t0 = time.perf_counter()
+        sys2 = System(settings_path=load_path, sensor=Sensor.IMU_STEREO,
+                      device=dev)
+        torch.cuda.synchronize()
+        out["atlas_load_ms"] = (time.perf_counter() - t0) * 1e3
+        t2 = sys2.tracker
+        a, b = map_state_to_numpy(tracker.map), map_state_to_numpy(t2.map)
+        odd = [n for n in a if not (
+            all(np.array_equal(x, y) for x, y in zip(a[n], b[n]))
+            if n == "kf_pose" else np.array_equal(a[n], b[n]))]
+        same_imu = (
+            t2.imu_initialized == tracker.imu_initialized
+            and t2._imu_stage == tracker._imu_stage
+            and t2.kf_time == [float(x) for x in tracker.kf_time]
+            and all(np.array_equal(x, y)
+                    for x, y in zip(t2.kf_vel, tracker.kf_vel))
+            and all(torch.equal(x.gyro, y.gyro) and torch.equal(x.acc, y.acc)
+                    for x, y in zip(t2.kf_bias, tracker.kf_bias))
+            and [r is None for r in t2.kf_raw]
+            == [r is None for r in tracker.kf_raw]
+            and torch.equal(t2.cur_vel, tracker.cur_vel))
+        if odd or not same_imu:
+            raise RuntimeError(f"system_session: the restored atlas differs "
+                               f"in {odd} (inertial state equal: "
+                               f"{same_imu})")
+        # relocalization into the restored map, then localization mode
+        k = n_frames // 2
+        inputs, ts, _ = make(k)
+        before = t2.state.name
+        rec = sys2.track_stereo_imu(*inputs[0], ts, *inputs[1])
+        out["reloc"] = dict(frame=k, before=before, after=t2.state.name,
+                            state=rec.state, inliers=int(rec.tracked),
+                            golden=golden["reloc"])
+        if (before, t2.state.name) != ("LOST", "OK"):
+            raise RuntimeError(f"system_session: relocalization "
+                               f"{out['reloc']}")
+        n_kf = int(t2.map.n_kf)
+        sys2.activate_localization_mode()
+        loc = []
+        for j in range(k + 1, k + 1 + SYSTEM_LOCALIZATION_FRAMES):
+            inputs, ts, _ = make(j)
+            loc.append(sys2.track_stereo_imu(*inputs[0], ts,
+                                             *inputs[1]).state)
+        sys2.deactivate_localization_mode()
+        out["localization"] = dict(states=loc, n_kf_before=n_kf,
+                                   n_kf_after=int(t2.map.n_kf))
+        if int(t2.map.n_kf) != n_kf:
+            raise RuntimeError(f"system_session: localization mode changed "
+                               f"the keyframes {out['localization']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("system_session " + json.dumps(
+        {k: out[k] for k in (
+            "frames", "tracked", "golden_tracked", "n_kf", "golden_n_kf",
+            "n_mp", "golden_n_mp", "imu_stage_keyframes",
+            "golden_imu_stage_keyframes", "loops_closed", "loop_stats",
+            "golden_loop_stats", "frame_ms_mean", "frame_ms_median",
+            "plain_tracked_frame_ms_mean",
+            "keyframe_frame_ms_mean", "launches", "launches_tracked",
+            "ok_frames", "first_frame_differing_from_golden",
+            "settings_parse_ms", "atlas_bytes", "atlas_save_ms",
+            "atlas_load_ms", "trajectory_lines", "reloc", "localization")}),
+          flush=True)
+    return out
+
+
+def _system_gates(out, golden, rows):
+    """The session against the JAX System's golden: every frame's state,
+    inliers, keyframes, map points and IMU stage exact through frame
+    SYSTEM_EXACT_FRAMES - 1; after it the atlas sessions' looser gates
+    (C2): the tracked count within ATLAS_TRACKED_TOL, keyframes within
+    SYSTEM_KF_TOL, map points within SYSTEM_MP_RTOL, IMU stages on the
+    golden's keyframes +-VIO_STAGE_KF_TOL."""
+    keys = ("state", "tracked", "n_kf", "n_mp", "imu_stage")
+    g = golden["frames"]
+    odd = [k for k in range(min(SYSTEM_EXACT_FRAMES, len(g)))
+           if any(rows[k][n] != g[k][n] for n in keys)]
+    if odd:
+        raise RuntimeError(f"system_session frames {odd} differ from the "
+                           f"golden's")
+    if abs(out["tracked"] - golden["tracked"]) > ATLAS_TRACKED_TOL:
+        raise RuntimeError(f"system_session tracked {out['tracked']}, the "
+                           f"golden {golden['tracked']}")
+    if abs(out["n_kf"] - golden["n_kf"]) > SYSTEM_KF_TOL:
+        raise RuntimeError(f"system_session ends with {out['n_kf']} "
+                           f"keyframes, the golden {golden['n_kf']}")
+    if abs(out["n_mp"] - golden["n_mp"]) > SYSTEM_MP_RTOL * golden["n_mp"]:
+        raise RuntimeError(f"system_session ends with {out['n_mp']} map "
+                           f"points, the golden {golden['n_mp']}")
+    got, want = out["imu_stage_keyframes"], out["golden_imu_stage_keyframes"]
+    if sorted(got) != sorted(want) or any(
+            abs(got[s] - want[s]) > VIO_STAGE_KF_TOL for s in want):
+        raise RuntimeError(f"system_session: IMU stages on keyframes {got}, "
+                           f"the golden's {want}")
 
 
 def profile_session_frames(tracker, frame, label="session",
@@ -2216,13 +2658,17 @@ def main():
     _phase("stereo_vio_atlas_session", t0)
 
     t0 = time.perf_counter()
+    system = run_system_session(dev)
+    _phase("system_session", t0)
+
+    t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
              stages.items()}
     print("stage ms (mean over the 16-frame run; mapping and local_ba per "
           "keyframe event): " + json.dumps(table), flush=True)
     print("stage ms (all): " + json.dumps(stages), flush=True)
-    # this slice's main path is the stereo-inertial atlas session
-    report["launches"] = vio_atlas["launches"]
+    # this slice's main path is the System session from a settings file
+    report["launches"] = system["launches"]
     report["launches_by_path"] = {
         "bench_frames": launches["masked_match"],
         "session": session["launches"],
@@ -2238,7 +2684,8 @@ def main():
         "loop_correct": loop["launches"],
         "atlas_session": atlas["launches"],
         "reloc_session": reloc["launches"],
-        "stereo_vio_atlas_session": vio_atlas["launches"]}
+        "stereo_vio_atlas_session": vio_atlas["launches"],
+        "system_session": system["launches"]}
     report["tracked_frames_by_path"] = {
         "session": session["ok_frames"], "stereo_session":
         stereo["ok_frames"], "rgbd_session": rgbd["ok_frames"],
@@ -2248,11 +2695,13 @@ def main():
         "vio_staged_session": staged["ok_frames"],
         "atlas_session": atlas["ok_frames"],
         "reloc_session": reloc["ok_frames"],
-        "stereo_vio_atlas_session": vio_atlas["ok_frames"]}
+        "stereo_vio_atlas_session": vio_atlas["ok_frames"],
+        "system_session": system["ok_frames"]}
     report["stereo_session_calls"] = stereo["match_calls"]
     report["fisheye_stereo_calls"] = fisheye["fisheye_stereo"]["match_calls"]
     report["stereo_vio_session_calls"] = stereo_vio["match_calls"]
     report["stereo_vio_atlas_session_calls"] = vio_atlas["match_calls"]
+    report["system_session_calls"] = system["match_calls"]
     report["launches_per_bench_frame"] = launches["masked_match"] / FRAMES
     report["session_launches_per_tracked_frame"] = (
         session["launches_tracked"] / max(session["ok_frames"], 1))

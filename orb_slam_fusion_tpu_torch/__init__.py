@@ -36,3 +36,12 @@ def resolve_device(device=None) -> torch.device:
                 "CPU explicitly")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def __getattr__(name):
+    """``System`` and ``Sensor``, the front door, from the package's top
+    level (imported on first use, so importing the package stays light)."""
+    if name in ("System", "Sensor"):
+        from . import system
+        return getattr(system, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

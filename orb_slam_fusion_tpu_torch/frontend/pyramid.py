@@ -239,12 +239,17 @@ VERIFIED_SIZES = ((96, 128), (100, 200), (120, 160), (240, 376), (360, 640),
                   (400, 640), (480, 640), (480, 752), (480, 848),
                   (512, 512), (540, 960), (600, 800), (720, 1280),
                   (768, 1024), (800, 848), (1080, 1920))
+# resizes outside the pyramids, each verified bit-exact the same way: the
+# System's frame resize to a settings file's Camera.newHeight/newWidth
+# (``jax.image.resize(img, size, "linear")``; EuRoC to half size)
+RESIZE_STEPS = (((480, 752), (240, 376)),)
 
 
 @functools.lru_cache(maxsize=1)
 def _verified_steps() -> frozenset:
-    """The (input shape, output shape) pairs of the verified pyramids."""
-    steps = set()
+    """The (input shape, output shape) pairs of the verified pyramids and
+    of ``RESIZE_STEPS``."""
+    steps = set(RESIZE_STEPS)
     for h, w in VERIFIED_SIZES:
         shapes = level_shapes(h, w, 8, 1.2)
         steps.update(zip(shapes[:-1], shapes[1:]))
@@ -255,7 +260,8 @@ def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
                     ) -> torch.Tensor:
     """``jax.image.resize(img, shape, "bilinear")`` for a 2-D image, with
     the reference's bits. Raises for a resize that is not a step of a
-    verified pyramid (``VERIFIED_SIZES``) rather than return other bits."""
+    verified pyramid (``VERIFIED_SIZES``) or one of ``RESIZE_STEPS``
+    rather than return other bits."""
     step = (tuple(img.shape), (int(shape[0]), int(shape[1])))
     if step not in _verified_steps():
         raise NotImplementedError(

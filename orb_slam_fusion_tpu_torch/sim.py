@@ -4,7 +4,8 @@ Counterpart of ``orb_slam_fusion_tpu/sim.py`` (``SyntheticWorld``,
 ``make_corridor_world``, ``world_from_trajectory``, ``render_frame``,
 ``render_stereo_frame``, ``render_fisheye_stereo_frame``,
 ``render_image``, ``gt_positions``, and the inertial sessions'
-``make_vio_sequence`` and ``vio_from_gt_trajectory``), for the port's
+``make_vio_sequence`` and ``vio_from_gt_trajectory``, and
+``with_viewdep_descriptors``), for the port's
 tests and
 ``chip_smoke.py``, which run without JAX. Given the same arguments it
 returns the reference's arrays bit for bit, so both packages track the
@@ -528,6 +529,15 @@ def make_vio_sequence(n_frames: int = 120, fps: float = 20.0,
     return VioSequence(world=world, frame_imu=frame_imu,
                        vel=np.stack(vels), gravity=g_w,
                        gyro_bias_true=bg, acc_bias_true=ba_)
+
+
+def with_viewdep_descriptors(world: SyntheticWorld, seed: int = 0,
+                             drift_bits: int = 80) -> SyntheticWorld:
+    """Equip a world with viewpoint-dependent (per-view-quadrant)
+    descriptors (``SyntheticWorld.quad_desc``)."""
+    rng = np.random.RandomState(seed ^ 0x5EED)
+    return world._replace(quad_desc=make_quadrant_descriptors(
+        world.descriptors, rng, drift_bits))
 
 
 def vio_from_gt_trajectory(positions: np.ndarray, quats_wxyz: np.ndarray,

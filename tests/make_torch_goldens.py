@@ -50,6 +50,21 @@ which the input hashes let a run on another machine check.
   initializes: the record is the two-view initialization's states and
   match counts).
 
+* ``system_session_480x752.json``: the JAX package's ``System`` built
+  from ``chip_smoke.py``'s EuRoC settings file (stereo-inertial, the
+  unrectified pinhole rig, 1200 features, loop closing on) over a mav0
+  tree of the stereo-inertial sequence, fed raw rendered pairs through
+  ``track_stereo_imu`` until 5 frames after its IMU init (at most 80); per
+  frame the IMU stage and bias as above, then the autosaved atlas restored
+  into a second ``System``: the relocalization on the middle frame and
+  localization mode over the next 5 frames.
+
+* ``system_mono_session.json`` and ``system_mono_atlas.npz``: the JAX
+  ``System``'s 16-frame monocular feature session of
+  ``tests/test_torch_system.py`` (the last 4 frames in localization mode):
+  per-frame records and poses, the five trajectory files, the interactive
+  viewer and the first line of the debug dump, and its atlas checkpoint.
+
 * The loop-closing slice (``loop_closing=True``): ``loop_map_20kf.npz``
   (``test_loop_closing_e2e.py``'s drifted loop map as the JAX package
   builds it, with its closer's results: the closing keyframe, the loop
@@ -881,6 +896,163 @@ def loop_map():
     return None
 
 
+SYSTEM = dict(settings="chip_smoke.SYSTEM_SETTINGS_YAML",
+              seq=chip_smoke.VIO_SEQ, baseline=chip_smoke.STEREO_BASELINE,
+              max_frames=chip_smoke.SYSTEM_MAX_FRAMES,
+              after_init=chip_smoke.SYSTEM_AFTER_INIT,
+              no_init_frames=chip_smoke.SYSTEM_NO_INIT_FRAMES)
+
+
+def system_session():
+    """The JAX package's ``System`` from ``chip_smoke.py``'s EuRoC
+    settings file (stereo-inertial, the unrectified rig, 1200 features,
+    loop closing on) over the mav0 tree ``chip_smoke.write_mav0`` writes
+    from the stereo-inertial sequence, read back by the port's numpy
+    ``EurocSequence`` (the card reads the same values), with raw 480x752
+    pairs rendered at the EuRoC raw intrinsics; then the autosaved atlas
+    restored into a second ``System``, a relocalization on the middle
+    frame and localization mode over the next frames."""
+    import shutil
+    import tempfile
+    from orb_slam_fusion_tpu.system import Sensor, System
+    from orb_slam_fusion_tpu_torch.io import EurocSequence
+
+    seq = sim.make_vio_sequence(**chip_smoke.VIO_SEQ)
+    world = seq.world
+    cam = jnp.asarray([chip_smoke.EUROC_K1[0][0], chip_smoke.EUROC_K1[1][1],
+                       chip_smoke.EUROC_K1[0][2], chip_smoke.EUROC_K1[1][2]])
+    size = (chip_smoke.IMG_H, chip_smoke.IMG_W)
+
+    def inputs(k, fr):
+        right = lie.SE3(world.poses.R[k], world.poses.t[k] + jnp.array(
+            [-chip_smoke.STEREO_BASELINE, 0.0, 0.0]))
+        raw = (sim.render_image(world, k, cam, size),
+               sim.render_image(world, k, cam, size, pose_override=right))
+        imu = (fr.imu_acc, fr.imu_gyro, fr.imu_t)
+        return raw, imu, sha(*raw) + sha(*imu)
+
+    def run(n_max, root):
+        (path, load_path), atlas = chip_smoke.system_settings_files(root)
+        chip_smoke.write_mav0(root, seq, n_max)
+        frames_in = list(EurocSequence(root).frames())
+        sys_ = System(settings_path=path, sensor=Sensor.IMU_STEREO)
+        tr = sys_.tracker
+        frames, init = [], None
+        for k in range(n_max):
+            raw, imu, digest = inputs(k, frames_in[k])
+            rec = sys_.track_stereo_imu(*raw, frames_in[k].timestamp, *imu)
+            frames.append(vio_record(tr, rec, digest))
+            print("system", k, frames[-1]["state"], frames[-1]["tracked"],
+                  frames[-1]["n_kf"], frames[-1]["imu_stage"], flush=True)
+            if init is None and tr._imu_stage >= 1:
+                init = k
+            if init is not None and k >= init + chip_smoke.SYSTEM_AFTER_INIT:
+                break
+        return sys_, frames, init, load_path, frames_in
+
+    root = tempfile.mkdtemp(prefix="osf_system_golden_")
+    try:
+        sys_, frames, init, load_path, frames_in = run(
+            chip_smoke.SYSTEM_MAX_FRAMES, root)
+        if init is None:
+            shutil.rmtree(root)
+            os.makedirs(root)
+            sys_, frames, init, load_path, frames_in = run(
+                chip_smoke.SYSTEM_NO_INIT_FRAMES, root)
+        tr = sys_.tracker
+        out = finish(tr, world, frames, dict(SYSTEM, imu_init_frame=init),
+                     with_scale=False)
+        out["loops_closed"] = int(tr.loop_closer.num_closed)
+        out["loop_stats"] = {k: int(v) for k, v in tr.loop_closer.stats
+                             .items() if isinstance(v, (int, np.integer))}
+        sys_.shutdown()
+        sys2 = System(settings_path=load_path, sensor=Sensor.IMU_STEREO)
+        t2 = sys2.tracker
+        k = len(frames) // 2
+        raw, imu, _ = inputs(k, frames_in[k])
+        before = t2.state.name
+        rec = sys2.track_stereo_imu(*raw, frames_in[k].timestamp, *imu)
+        out["reloc"] = dict(frame=k, before=before, after=t2.state.name,
+                            state=rec.state, inliers=int(rec.tracked))
+        n_kf = int(t2.map.n_kf)
+        sys2.activate_localization_mode()
+        loc = []
+        for j in range(k + 1, k + 1 + chip_smoke.SYSTEM_LOCALIZATION_FRAMES):
+            raw, imu, _ = inputs(j, frames_in[j])
+            loc.append(sys2.track_stereo_imu(
+                *raw, frames_in[j].timestamp, *imu).state)
+        out["localization"] = dict(states=loc, n_kf_before=n_kf,
+                                   n_kf_after=int(t2.map.n_kf))
+        print("system reloc", out["reloc"], out["localization"], flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# tests/test_torch_system.py's monocular System session (JAX side, kept as
+# a snapshot so the test runs the port alone): 16 frames of the tracker
+# e2e world through track_monocular_features, the last 4 in localization
+# mode
+SYSTEM_MONO = dict(config=dict(cam_params=(400.0, 400.0, 376.0, 240.0),
+                               image_size=(480, 752), n_features=256,
+                               max_keyframes=16, max_map_points=2048,
+                               ba_window=5, loop_closing=True,
+                               vocab_words=1024),
+                   world=dict(n_frames=40, n_points=4000, seed=3),
+                   render_seed=11, frames=16, localization_from=12)
+SYSTEM_MONO_FILE = "system_mono_session.json"
+SYSTEM_MONO_ATLAS = "system_mono_atlas.npz"
+
+
+def system_mono_session():
+    import tempfile
+    from orb_slam_fusion_tpu.system import Sensor, System
+    spec = SYSTEM_MONO
+    cfg = config_of(spec["config"])
+    world = sim.make_corridor_world(**spec["world"])
+    sys_ = System(sensor=Sensor.MONOCULAR, config=cfg, verbosity=0)
+    tr = sys_.tracker
+    cam = jnp.asarray(cfg.cam_params)
+    frames = []
+    for k in range(spec["frames"]):
+        if k == spec["localization_from"]:
+            sys_.activate_localization_mode()
+        feats = sim.render_frame(world, k, cam, cfg.image_size,
+                                 cfg.orb.n_features, seed=spec["render_seed"])
+        rec = sys_.track_monocular_features(feats,
+                                            float(world.timestamps[k]))
+        frames.append(dict(record(tr, rec, feats_sha(feats)),
+                           pose_R=np.asarray(rec.pose.R).tolist(),
+                           pose_t=np.asarray(rec.pose.t).tolist()))
+    sys_.deactivate_localization_mode()
+    files = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name in ("trajectory_tum", "trajectory_euroc", "trajectory_kitti",
+                     "keyframe_trajectory_tum",
+                     "keyframe_trajectory_euroc"):
+            path = os.path.join(d, name + ".txt")
+            getattr(sys_, "save_" + name)(path)
+            with open(path) as f:
+                files[name] = f.read()
+        path = os.path.join(d, "viewer.html")
+        sys_.save_interactive_viewer(path)
+        with open(path) as f:
+            files["viewer_html"] = f.read()
+        debug = os.path.join(d, "debug.txt")
+        sys_.save_debug_data(debug)
+        with open(debug) as f:
+            files["debug_first_line"] = f.readline()
+    sys_.save_atlas(os.path.join(OUT, SYSTEM_MONO_ATLAS))
+    return dict(spec, frames=frames, files=files,
+                trajectory_tum=[[float(v) for v in r]
+                                for r in tr.trajectory_tum()],
+                tracked=sum(f["state"] in ("ok", "init-done")
+                            for f in frames),
+                n_kf=int(tr.map.n_kf), n_mp=int(tr.map.n_mp), ate_m=None,
+                state_name=tr.state.name, jax_version=jax.__version__,
+                generated_by="tests/make_torch_goldens.py")
+
+
 ATLAS_CFG = {}                      # SlamConfig() as is
 # the merged map's third and fourth loops, which the port's free-running
 # main path does not reach (it parts from the golden on frame 22, PERF.md
@@ -935,6 +1107,8 @@ SESSIONS = {"mono_session_480x752.json": mono_session,
             "stereo_vio_e2e_session_480x752.json": (
                 lambda: stereo_vio_session(STEREO_VIO_E2E)),
             "vio_staged_session_480x752.json": vio_staged_session,
+            "system_session_480x752.json": system_session,
+            SYSTEM_MONO_FILE: system_mono_session,
             chip_smoke.LOOP_MAP_FILE: loop_map,
             LOOP_STEPS_FILE: loop_closer_steps,
             **LOOP_SESSIONS}

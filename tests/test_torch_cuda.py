@@ -96,6 +96,69 @@ def test_kernel_matches_plain_on_adversarial_cases(cuda, name, octave):
         assert torch.equal(g, w), (what, int((g != w).sum()))
 
 
+@pytest.mark.parametrize("octave", [False, True])
+@pytest.mark.parametrize("name", sorted(cases.N1200_CASES))
+def test_kernel_matches_plain_at_1200_keypoints(cuda, name, octave):
+    """The System session's width (1200 keypoints, the EuRoC settings'
+    ORBextractor.nFeatures) and one more, bit-exact against the plain
+    version."""
+    c = cases.N1200_CASES[name]()
+    t = lambda k: torch.from_numpy(np.array(c[k])).to(cuda)  # noqa: E731
+    args = [t("pred_uv"), desc_to_torch(c["mp_desc"], cuda), t("mp_valid"),
+            t("radius"), t("kp_uv"), desc_to_torch(c["kp_desc"], cuda),
+            t("kp_valid")]
+    kw = (dict(mp_octave=t("mp_octave"), kp_octave=t("kp_octave"))
+          if octave else {})
+    before = mm.launches
+    got = mm.masked_match(*args, **kw)
+    assert mm.launches == before + 1
+    want = mm.masked_match_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("best_idx", "best", "second")):
+        assert torch.equal(g, w), (what, int((g != w).sum()))
+    assert int((want[1] == 0).sum()) > 0
+
+
+def test_extractor_at_1200_features_on_card_matches_cpu(cuda):
+    """ORB extraction at 1200 features of a remapped 480x752 EuRoC frame:
+    every feature field the same bits on the card as on the CPU."""
+    import chip_smoke
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.frontend.extractor import (
+        OrbParams, extract_features)
+    from orb_slam_fusion_tpu_torch.frontend.rectify import remap_bilinear
+    seq = sim.make_vio_sequence(**dict(chip_smoke.VIO_SEQ, n_frames=4))
+    raw, _ = chip_smoke.system_raw_pair(seq.world, 2)
+    (mL, _), _, _ = chip_smoke._euroc_rectification()
+    img = remap_bilinear(torch.from_numpy(raw), torch.from_numpy(mL))
+    orb = OrbParams(n_features=1200)
+    want = extract_features(img, orb)
+    got = extract_features(img.to(cuda), orb)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert int(want.valid.sum()) > 1024
+
+
+def test_system_frames_launch_the_kernel(cuda, tmp_path):
+    """The System front door on the card: three raw pairs through
+    ``track_stereo_imu`` from the EuRoC settings file, 3 masked-match
+    launches on each tracked frame."""
+    import chip_smoke
+    from orb_slam_fusion_tpu_torch import sim
+    from orb_slam_fusion_tpu_torch.system import Sensor, System
+    (path, _), _ = chip_smoke.system_settings_files(str(tmp_path))
+    seq = sim.make_vio_sequence(**chip_smoke.VIO_SEQ)
+    sys_ = System(settings_path=path, sensor=Sensor.IMU_STEREO, verbosity=0)
+    for k in range(3):
+        raw = chip_smoke.system_raw_pair(seq.world, k)
+        before = mm.launches
+        rec = sys_.track_stereo_imu(*raw, float(seq.world.timestamps[k]),
+                                    *chip_smoke._imu_of(seq, k))
+        assert rec.state == ("init-done" if k == 0 else "ok")
+        assert mm.launches - before == (0 if k == 0 else 3)
+
+
 @pytest.mark.parametrize("N", [1024, 4097])
 @pytest.mark.parametrize("M", [8192, 16384, 32768])
 def test_kernel_matches_plain_at_grown_map_sizes(cuda, M, N):

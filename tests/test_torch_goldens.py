@@ -351,3 +351,56 @@ def test_loop_map_snapshot_is_the_reference_build(tmp_path, monkeypatch):
            "loop_session_480x752.json",
            "stereo_vio_atlas_session_480x752.json"]
     assert sum((GOLDENS / n).stat().st_size for n in new) <= 8e6
+
+
+def test_system_golden_matches_chip_smoke():
+    """The System session's golden carries ``chip_smoke.py``'s settings
+    and stopping rule (5 frames after its IMU init, at most 80), its
+    records are complete, and the port regenerates its inputs (the raw
+    pair rendered at the EuRoC intrinsics, the IMU window read back from
+    the mav0 tree) on a sample of frames."""
+    from orb_slam_fusion_tpu_torch.io import EurocSequence
+    g = _load("system_session_480x752.json")
+    assert g["seq"] == chip_smoke.VIO_SEQ and g["baseline"] == \
+        chip_smoke.STEREO_BASELINE
+    assert (g["max_frames"], g["after_init"], g["no_init_frames"]) == (
+        chip_smoke.SYSTEM_MAX_FRAMES, chip_smoke.SYSTEM_AFTER_INIT,
+        chip_smoke.SYSTEM_NO_INIT_FRAMES)
+    n = len(g["frames"])
+    init = g["imu_init_frame"]
+    assert n == (init + chip_smoke.SYSTEM_AFTER_INIT + 1 if init is not None
+                 else chip_smoke.SYSTEM_NO_INIT_FRAMES)
+    keys = {"state", "tracked", "n_kf", "n_mp", "inputs_sha256",
+            "imu_initialized", "imu_stage", "bias"}
+    assert all(set(f) == keys for f in g["frames"])
+    assert chip_smoke.SYSTEM_EXACT_FRAMES <= n
+    assert g["reloc"]["before"] == "LOST" and "frame" in g["reloc"]
+    loc = g["localization"]
+    assert loc["n_kf_before"] == loc["n_kf_after"]
+    seq = sim.make_vio_sequence(**g["seq"])
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        chip_smoke.write_mav0(d, seq, n)
+        frames = list(EurocSequence(d).frames())
+    for k in (0, 1, n - 1):
+        raw = chip_smoke.system_raw_pair(seq.world, k)
+        fr = frames[k]
+        assert chip_smoke._sha(*raw) + chip_smoke._sha(
+            fr.imu_acc, fr.imu_gyro, fr.imu_t) == g["frames"][k][
+                "inputs_sha256"], k
+
+
+def test_system_mono_snapshot_is_complete():
+    """tests/test_torch_system.py's JAX snapshot: the session spec, the
+    records, the five trajectory files and the viewer page, and the
+    atlas beside it."""
+    g = _load(mk.SYSTEM_MONO_FILE)
+    for k in ("config", "world", "render_seed", "localization_from"):
+        assert g[k] == json.loads(json.dumps(mk.SYSTEM_MONO[k])), k
+    assert len(g["frames"]) == mk.SYSTEM_MONO["frames"]
+    assert set(g["files"]) == {
+        "trajectory_tum", "trajectory_euroc", "trajectory_kitti",
+        "keyframe_trajectory_tum", "keyframe_trajectory_euroc",
+        "viewer_html", "debug_first_line"}
+    z = np.load(GOLDENS / mk.SYSTEM_MONO_ATLAS)
+    assert int(z["n_kf"]) == g["n_kf"] and "vocab_md5" in z.files

@@ -6,9 +6,11 @@
   it loads (``tests/torch_fixtures.py``).
 * A source scan finds no such import anywhere in them.
 * Entry points that create tensors (the session's ``MonoTracker``, the
-  port's ``sim.render_frame`` and ``prng.uniform`` included) run on CUDA
-  unless told otherwise: with no GPU and no ``device=``, they raise
-  instead of running on the CPU.
+  port's ``sim.render_frame`` and ``prng.uniform``, the ``System`` facade
+  and its settings loader included) run on CUDA unless told otherwise:
+  with no GPU and no ``device=``, they raise instead of running on the CPU.
+* The port imports no PyYAML, OpenCV or matplotlib at import time (the
+  GPU machine has none): the fresh interpreter blocks them too.
 """
 
 import ast
@@ -37,6 +39,10 @@ _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["orb_slam_fusion_tpu"] = None
+# the GPU machine has no PyYAML, OpenCV or matplotlib
+sys.modules["yaml"] = None
+sys.modules["cv2"] = None
+sys.modules["matplotlib"] = None
 import orb_slam_fusion_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -44,8 +50,8 @@ for name in names:
 import chip_smoke
 assert callable(chip_smoke.main)
 assert chip_smoke._fixtures().ba_problem_arrays
-bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "orb_slam_fusion_tpu" or m.startswith("orb_slam_fusion_tpu.")]
+bad = [m for m in sys.modules if m.split(".")[0] in (
+       "jax", "orb_slam_fusion_tpu", "yaml", "cv2", "matplotlib")]
 assert all(sys.modules[m] is None for m in bad), bad
 print(len(names))
 """
@@ -56,7 +62,7 @@ def test_port_and_smoke_import_without_jax():
     r = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip().splitlines()[-1]) >= 20   # every module
+    assert int(r.stdout.strip().splitlines()[-1]) >= 65   # every module
 
 
 def _imports(path):
@@ -80,6 +86,56 @@ def test_source_scan_finds_no_jax_import():
             assert top != "orb_slam_fusion_tpu", f"{f}: imports {name}"
         text = f.read_text()
         assert "import jax" not in text and "from jax" not in text, f
+
+
+def test_port_never_imports_yaml_and_draws_lazily():
+    """The settings files are parsed without PyYAML, anywhere in the port;
+    OpenCV and matplotlib are imported only inside the functions that
+    decode an image file or draw (``io/euroc.py::load_gray``,
+    ``viz/drawers.py``), never at a module's top level."""
+    for f in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for name in _imports(f):
+            assert name.split(".")[0] != "yaml", f"{f}: imports {name}"
+        for node in tree.body:
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for name in names:
+                assert name.split(".")[0] not in ("cv2", "matplotlib"), \
+                    f"{f}: imports {name} at import time"
+
+
+def test_system_refuses_cpu_without_device(monkeypatch, tmp_path):
+    """The System facade and its settings loader: CUDA unless told
+    otherwise, as the trackers."""
+    from orb_slam_fusion_tpu_torch.config import load_settings
+    from orb_slam_fusion_tpu_torch.system import Sensor, System
+    p = tmp_path / "s.yaml"
+    p.write_text(chip_smoke_settings())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: System(sensor=Sensor.MONOCULAR,
+                       config=SlamConfig(loop_closing=False)),
+        lambda: System(settings_path=str(p), sensor=Sensor.IMU_STEREO),
+        lambda: load_settings(str(p), "stereo-imu"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    import orb_slam_fusion_tpu_torch as port
+    assert (port.System, port.Sensor) == (System, Sensor)
+    s = System(settings_path=str(p), sensor=Sensor.IMU_STEREO,
+               verbosity=0, device="cpu")
+    assert s.tracker.map.mp_pos.device.type == "cpu"
+    assert s.tracker.calib.Tbc_R.device.type == "cpu"
+    assert s.tracker.cfg.orb.n_features == 1200
+
+
+def chip_smoke_settings():
+    import chip_smoke
+    return chip_smoke.SYSTEM_SETTINGS_YAML
 
 
 def test_entry_points_refuse_cpu_without_device(monkeypatch):

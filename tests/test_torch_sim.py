@@ -7,7 +7,7 @@ distances; every ``render_frame`` array (uv, octaves, descriptors,
 validity) on the tracker e2e sequence; ``render_image`` images on the
 image e2e sequence; ``gt_positions``. Also the float32 pieces the
 reference runs eagerly through XLA: ``so3_exp`` (glibc ``sinf``/``cosf``
-inside) and the pinhole projection.
+inside) and the pinhole projection; ``with_viewdep_descriptors``.
 """
 
 import jax.numpy as jnp
@@ -114,3 +114,21 @@ def test_quaternion_world_and_viewpoint_descriptors():
         for f in fj._fields:
             np.testing.assert_array_equal(np.asarray(getattr(fj, f)), ft[f],
                                           err_msg=f"frame {k} {f}")
+
+
+@pytest.mark.parametrize("seed,drift_bits", [(0, 80), (7, 24)])
+def test_with_viewdep_descriptors(seed, drift_bits):
+    """``with_viewdep_descriptors``: the same per-quadrant descriptors
+    (bit-exact), and frames rendered from them the same."""
+    wj = jsim.make_corridor_world(n_frames=12, n_points=900, seed=4)
+    wt = tsim.make_corridor_world(n_frames=12, n_points=900, seed=4)
+    wj = jsim.with_viewdep_descriptors(wj, seed=seed, drift_bits=drift_bits)
+    wt = tsim.with_viewdep_descriptors(wt, seed=seed, drift_bits=drift_bits)
+    assert wt.quad_desc.dtype == np.uint32
+    assert wt.quad_desc.shape == (900, 4, 8)
+    _same_world(wj, wt)
+    fj = jsim.render_frame(wj, 9, jnp.asarray(CAM), (480, 752), 256, seed=3)
+    ft = tsim.render_frame_numpy(wt, 9, CAM, (480, 752), 256, seed=3)
+    for f in fj._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(fj, f)), ft[f],
+                                      err_msg=f)

@@ -71,11 +71,11 @@ def borders(seed):
     return c
 
 
-def cluster(seed):
+def cluster(seed, M=300, N=1024):
     """Most keypoints packed into one cell (within 2 px), with tied
     duplicates, and rows centred on the cluster and around it."""
     rng = np.random.RandomState(seed)
-    c = _base(rng, 300, 1024)
+    c = _base(rng, M, N)
     n = 700
     c["kp_uv"][:n] = (np.array([400.0, 200.0], np.float32)
                       + rng.uniform(-1, 1, (n, 2)).astype(np.float32))
@@ -201,4 +201,13 @@ CASES = {
     "m1": lambda: sizes(6, 1, 300),
     "m1n1": lambda: sizes(7, 1, 1),
     "beyond_resident": lambda: sizes(8, 96, RESIDENT_MAX + 700),
+}
+
+
+# the System session's width (ORBextractor.nFeatures: 1200 in the EuRoC
+# settings), and one keypoint more; card tests only
+N1200_CASES = {
+    "n1200": lambda: sizes(10, 8192, 1200),
+    "n1200_cluster": lambda: cluster(11, 2048, 1200),
+    "n1201": lambda: sizes(12, 8192, 1201),
 }

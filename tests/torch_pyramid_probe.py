@@ -2,6 +2,15 @@
 """Which image sizes get the reference's pyramid bits from the port.
 
     JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py [HxW ...]
+    JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py --step HxW:hxw
+
+With ``--step``, probes one resize outside the pyramids instead: the
+System's frame resize to a settings file's Camera.newHeight/newWidth
+(``jax.image.resize(img, (h, w), "linear")``, run eagerly as
+``System._preprocess`` runs it) against the port's height-first resize,
+on six seeded images (uniform random, three of them rounded to integers)
+and a rendered 480x752 frame; a step joins ``pyramid.RESIZE_STEPS`` only
+when every image shows 0 differing pixels.
 
 For each size, builds the 8-level pyramid of a seeded uniform-random image
 with the reference (``jax.image.resize`` inside one jit, on the CPU) and
@@ -51,10 +60,39 @@ def width_first(img, shape):
     return out.contiguous()
 
 
+def probe_step(step):
+    src, dst = ([int(v) for v in part.split("x")] for part in step.split(":"))
+    imgs = []
+    for seed in range(6):
+        img = (np.random.RandomState(seed).rand(*src) * 255).astype(
+            np.float32)
+        imgs.append(np.round(img) if seed >= 3 else img)
+    if tuple(src) == (480, 752):
+        from orb_slam_fusion_tpu_torch import sim
+        world = sim.make_corridor_world(n_frames=3, n_points=2000, seed=1)
+        imgs.append(sim.render_image(world, 1, (458.654, 457.296, 367.215,
+                                                248.375), (480, 752)))
+    bad = []
+    for img in imgs:
+        ref = np.asarray(jax.image.resize(jnp.asarray(img), tuple(dst),
+                                          "linear"))
+        got = tpyr._resize_height_first(torch.from_numpy(img), tuple(dst))
+        bad.append(int((ref != got.numpy()).sum()))
+    listed = (tuple(src), tuple(dst)) in tpyr.RESIZE_STEPS
+    print(f"{step}: differing px per image {bad}"
+          + (" (in RESIZE_STEPS)" if listed else ""), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sizes", nargs="*", default=SIZES)
+    ap.add_argument("--step", action="append", default=[],
+                    help="a resize HxW:hxw outside the pyramids")
     a = ap.parse_args()
+    if a.step:
+        for step in a.step:
+            probe_step(step)
+        return
     build = jax.jit(jpyr.build_pyramid, static_argnums=(1, 2))
     for size in a.sizes:
         h, w = (int(v) for v in size.split("x"))
