@@ -10,7 +10,11 @@
 // where masked: the lowest index wins ties, and second is the minimum over
 // every column but best_idx, so a tied duplicate gives second == best and
 // an all-masked row gives (0, BIG, BIG). This is masked_match_folded_plain
-// in frontend/masked_match.py, bit for bit.
+// in frontend/masked_match.py, bit for bit. The mode word ``flags`` holds
+// the octave gate (bit 0) and the window's rounding (bit 1): off, du*du +
+// dv*dv with each product rounded; on, fmaf(dv, dv, du*du), the single
+// rounding XLA:CPU gives the reference's dense sum((uv - kp)**2) (the
+// distributed tracker's window).
 //
 // What bounds it. A dense search does every (row, keypoint) pair: 8 XOR, 8
 // popcount and 8 adds plus the window test. On an H100 (compute capability
@@ -124,14 +128,21 @@ __device__ __forceinline__ Top2 row_merge(Top2 t, unsigned mask, int width) {
   return t;
 }
 
+constexpr int FLAG_OCTAVE = 1;              // the octave gate
+constexpr int FLAG_FUSED = 2;               // fmaf(dv, dv, du*du) window
+
 // The window and octave test of masked_match_folded_plain, same rounding.
 __device__ __forceinline__ bool passes(float mu, float mv, float r2, float mo,
-                                       bool use_octave, float ku, float kv,
+                                       int flags, float ku, float kv,
                                        float ko) {
   const float du = __fsub_rn(mu, ku);
   const float dv = __fsub_rn(mv, kv);
-  bool ok = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv)) <= r2;
-  if (use_octave) ok = ok && (fabsf(__fsub_rn(mo, ko)) <= 1.5f || mo < 0.f);
+  const float du2 = __fmul_rn(du, du);
+  const float d2 = (flags & FLAG_FUSED) ? __fmaf_rn(dv, dv, du2)
+                                        : __fadd_rn(du2, __fmul_rn(dv, dv));
+  bool ok = d2 <= r2;
+  if (flags & FLAG_OCTAVE)
+    ok = ok && (fabsf(__fsub_rn(mo, ko)) <= 1.5f || mo < 0.f);
   return ok;
 }
 
@@ -161,7 +172,7 @@ masked_match_resident(const float4* __restrict__ uvr,      // (M) u, v, r, oct
                       const int4* __restrict__ mp_desc,    // (M, 8)
                       const float4* __restrict__ kp_uvo,   // (N) u, v, oct, -
                       const int4* __restrict__ kp_desc,    // (N, 8)
-                      int M, int N, int use_octave,
+                      int M, int N, int flags,
                       int* __restrict__ best_idx, int* __restrict__ best_out,
                       int* __restrict__ second_out) {
   extern __shared__ int4 smem4[];
@@ -288,7 +299,7 @@ masked_match_resident(const float4* __restrict__ uvr,      // (M) u, v, r, oct
 
     auto scan = [&](int s0, int s1) {
       for (int s = s0 + hl; s < s1; s += ROW_LANES) {
-        if (passes(mu, mv, r2, mo, use_octave, s_u[s], s_v[s], s_o[s])) {
+        if (passes(mu, mv, r2, mo, flags, s_u[s], s_v[s], s_o[s])) {
           int d = 0;
 #pragma unroll
           for (int w = 0; w < 8; ++w) d += __popc(md[w] ^ s_desc[w * N + s]);
@@ -346,7 +357,7 @@ masked_match_chunked(const float4* __restrict__ uvr,
                      const int* __restrict__ mp_desc,
                      const float4* __restrict__ kp_uvo,
                      const int* __restrict__ kp_desc, int M, int N,
-                     int use_octave, int* __restrict__ best_idx,
+                     int flags, int* __restrict__ best_idx,
                      int* __restrict__ best_out,
                      int* __restrict__ second_out) {
   __shared__ int s_desc[8][KP_CHUNK];
@@ -389,7 +400,7 @@ masked_match_chunked(const float4* __restrict__ uvr,
     __syncthreads();
     if (live) {
       for (int k = lane; k < n; k += 32) {
-        if (passes(mu, mv, r2, mo, use_octave, s_u[k], s_v[k], s_o[k])) {
+        if (passes(mu, mv, r2, mo, flags, s_u[k], s_v[k], s_o[k])) {
           int d = 0;
 #pragma unroll
           for (int w = 0; w < 8; ++w) d += __popc(md[w] ^ s_desc[w][k]);
@@ -415,7 +426,7 @@ size_t resident_smem(int N) {
 
 extern "C" int osf_masked_match(const void* uvr, const void* mp_desc,
                                 const void* kp_uvo, const void* kp_desc,
-                                int M, int N, int use_octave, void* best_idx,
+                                int M, int N, int flags, void* best_idx,
                                 void* best, void* second, void* stream) {
   if (M <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -424,7 +435,7 @@ extern "C" int osf_masked_match(const void* uvr, const void* mp_desc,
     masked_match_chunked<<<blocks, CHUNK_THREADS, 0, st>>>(
         static_cast<const float4*>(uvr), static_cast<const int*>(mp_desc),
         static_cast<const float4*>(kp_uvo), static_cast<const int*>(kp_desc),
-        M, N, use_octave, static_cast<int*>(best_idx),
+        M, N, flags, static_cast<int*>(best_idx),
         static_cast<int*>(best), static_cast<int*>(second));
     return static_cast<int>(cudaGetLastError());
   }
@@ -455,7 +466,7 @@ extern "C" int osf_masked_match(const void* uvr, const void* mp_desc,
   masked_match_resident<<<blocks, THREADS, smem, st>>>(
       static_cast<const float4*>(uvr), static_cast<const int4*>(mp_desc),
       static_cast<const float4*>(kp_uvo), static_cast<const int4*>(kp_desc),
-      M, N, use_octave, static_cast<int*>(best_idx), static_cast<int*>(best),
+      M, N, flags, static_cast<int*>(best_idx), static_cast<int*>(best),
       static_cast<int*>(second));
   return static_cast<int>(cudaGetLastError());
 }

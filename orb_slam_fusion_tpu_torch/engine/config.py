@@ -2,9 +2,10 @@
 
 Counterpart of ``orb_slam_fusion_tpu/engine/config.py``: the same fields
 and defaults, so a configuration written for the reference reads the same
-here, ``SlamConfig()`` as is (loop closing on) included. ``MonoTracker``
-refuses ``mesh_devices > 0`` (ROADMAP A15) rather than ignore it;
-``cam_model`` is ``"pinhole"`` or ``"kannala_brandt8"``.
+here, ``SlamConfig()`` as is (loop closing on) included.
+``mesh_devices > 0`` runs tracking, local BA and the loop closer's global
+BA on a mesh (``parallel/``, see ``engine/tracker.py``); ``cam_model`` is
+``"pinhole"`` or ``"kannala_brandt8"``.
 """
 
 from __future__ import annotations
@@ -68,5 +69,9 @@ class SlamConfig(NamedTuple):
     background_lba: bool = True
     background_gba: bool = True
 
-    # distributed execution: 0 = single device
+    # distributed execution: 0 = single device; N > 0 routes tracking
+    # through the map-sharded mesh program (parallel/dist_track.py), and
+    # local BA and the loop closer's GBA through the landmark-sharded Schur
+    # reduction (parallel/dist_ba.py), over min(N, CUDA devices) cards or,
+    # on the CPU, N shards of it
     mesh_devices: int = 0

@@ -564,9 +564,21 @@ class LoopCloser:
             self.gba_tick(tracker)
 
     def _global_ba_dist(self, tracker) -> None:
-        raise NotImplementedError(
-            "the distributed global BA (a tracker on a device mesh) is not "
-            "ported yet (ROADMAP A15)")
+        """Loop-closure GBA through the landmark-sharded distributed Schur
+        reduction (parallel/dist_ba.py) when the tracker runs on a mesh,
+        synchronously; the result is merged through the same correction
+        propagation as the chunked path."""
+        from ..parallel.dist_ba import distributed_bundle_adjustment
+        g = ChunkedGBA(tracker, self.cfg)
+        dev = tracker.map.kf_valid.device
+        poses, points, _ = distributed_bundle_adjustment(
+            g.prob, tracker.mesh, cam_model=self.cfg.cam_model, iters=3,
+            iters_second=7)
+        g.lm.poses = lie.SE3(poses.R.to(dev), poses.t.to(dev))
+        g.lm.points = points.to(dev)
+        g.lm.phase = 2
+        self.pending_gba = g
+        self._adopt_gba(tracker)
 
     def _adopt_gba(self, tracker) -> None:
         """Merge a finished GBA into the live map: snapshot rows take the

@@ -18,9 +18,16 @@ With ``loop_closing=True`` (the default) the session owns a loop closer
 the background global BA it ticks once per frame), relocalizes a lost
 frame against that database by PnP, archives its map into the atlas when
 the grace window runs out, and merges the active map back into an
-archived one that a keyframe recognizes (``_try_merge_maps``). Not ported
-yet, and refused rather than ignored: the distributed paths
-(``mesh_devices > 0``, ROADMAP A15).
+archived one that a keyframe recognizes (``_try_merge_maps``).
+
+With ``mesh_devices > 0`` the session runs on a mesh (``parallel/``):
+per-frame tracking through the map-sharded ``distributed_frame_update``,
+local BA synchronously through the landmark-sharded
+``distributed_bundle_adjustment`` (no background BA), and the loop
+closer's global BA through the same. On a CUDA device the mesh takes
+``min(mesh_devices, torch.cuda.device_count())`` cards, on the CPU
+``mesh_devices`` shards of the CPU; ``tracker.mesh`` may be replaced by
+any ``SlamMesh`` (``[cuda:0] * 8`` runs the 8-way split on one card).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from ..map import map_state as ms
 from ..solver import ba as ba_mod
 from ..map.atlas import Atlas, merge_maps
 from ..solver.local_ba import stereo_args
-from ..utils import masked_set, prng
+from ..utils import masked_set, masked_set_last, prng
 from ..utils.timing import STAGES, stage
 from .config import SlamConfig
 
@@ -138,10 +145,6 @@ class MonoTracker:
     ba_covisible_window = True
 
     def __init__(self, config: SlamConfig = SlamConfig(), device=None):
-        if getattr(config, "mesh_devices", 0):
-            raise NotImplementedError(
-                "distributed tracking and BA (mesh_devices > 0) are not "
-                "ported yet (ROADMAP A15)")
         if config.cam_model not in (cameras.PINHOLE,
                                     cameras.KANNALA_BRANDT8):
             raise ValueError(f"unknown camera model {config.cam_model!r}")
@@ -179,6 +182,19 @@ class MonoTracker:
         self.atlas = Atlas()
         self.enable_atlas = config.loop_closing
         self._merge_cooldown = 0
+        # distributed execution: map-sharded tracking and landmark-sharded
+        # BA over a mesh (SlamConfig.mesh_devices)
+        self.mesh = self._new_mesh(config.mesh_devices)
+
+    def _new_mesh(self, n: int):
+        """The reference's ``min(N, available devices)``: on a CUDA device
+        that many cards, on the CPU ``n`` shards of it."""
+        if n <= 0:
+            return None
+        from ..parallel.mesh import make_slam_mesh
+        if self.device.type == "cuda":
+            return make_slam_mesh(min(n, torch.cuda.device_count()))
+        return make_slam_mesh(devices=[self.device] * n)
 
     def _new_loop_closer(self):
         if not self.cfg.loop_closing:
@@ -445,11 +461,16 @@ class MonoTracker:
         return FrameRecord(timestamp, self.cur_pose, n_inliers, "ok")
 
     def _frame_update(self, vis, fnd, prev_pose, pred_pose, feats):
-        """The fused per-frame match + solve program (engine/step.py)."""
+        """The per-frame match + solve program: fused on one device
+        (engine/step.py) or, on a mesh, map-sharded
+        (parallel/dist_track.py)."""
         from .step import fused_frame_update
 
         cfg = self.cfg
         h, w = cfg.image_size
+        if self.mesh is not None:
+            return self._dist_frame_update(vis, fnd, prev_pose, pred_pose,
+                                           feats)
         return fused_frame_update(
             self.map.mp_pos, self.map.mp_desc, self.map.mp_valid,
             vis, fnd, prev_pose, pred_pose,
@@ -464,6 +485,45 @@ class MonoTracker:
             min_matches=cfg.min_track_matches,
             far_threshold=cfg.th_far_points,
             num_levels=cfg.orb.num_levels)
+
+    def _dist_frame_update(self, vis, fnd, prev_pose, pred_pose, feats):
+        """Per-frame tracking with the map-point table sharded over the
+        mesh (local matching per shard, summed normal equations, one pose
+        update), adapted to the fused step's ``FrameUpdate``."""
+        from ..parallel.dist_track import (distributed_frame_update,
+                                           pad_map_for_mesh)
+        from .step import FrameUpdate
+
+        cfg = self.cfg
+        h, w = cfg.image_size
+        m = self.map
+        inv_s2 = self.inv_s2[torch.clamp(
+            feats.octave, 0, cfg.orb.num_levels - 1).long()]
+        mp_pos, mp_desc, mp_valid, visp, fndp = pad_map_for_mesh(
+            self.mesh, m.mp_pos, m.mp_desc, m.mp_valid, vis, fnd)
+        res = distributed_frame_update(
+            mp_pos, mp_desc, mp_valid, visp, fndp, prev_pose, pred_pose,
+            feats.uv, feats.desc, feats.valid, inv_s2, self.cam_params,
+            mesh=self.mesh, cam_model=cfg.cam_model, img_h=h, img_w=w,
+            radius_coarse=cfg.match_radius_coarse,
+            radius_fine=cfg.match_radius_fine)
+        dev = self.device
+        M = m.mp_pos.shape[0]
+        F = feats.uv.shape[0]
+        midx = res.match_idx[:M].to(dev)
+        ok = res.inlier[:M].to(dev) & (midx >= 0)
+        # several map points may take one keypoint: the last row wins, as
+        # the reference's scatter does on the CPU
+        obs = masked_set_last(
+            torch.full((F,), -1, dtype=torch.int32, device=dev),
+            torch.clamp(midx, 0, F - 1),
+            torch.arange(M, dtype=torch.int32, device=dev), ok)
+        pose = lie.SE3(res.pose.R.to(dev), res.pose.t.to(dev))
+        velocity = lie.se3_compose(pose, lie.se3_inverse(prev_pose))
+        return FrameUpdate(
+            pose=pose, velocity=velocity, obs=obs,
+            mp_visible=res.mp_visible[:M].to(dev),
+            mp_found=res.mp_found[:M].to(dev), counts=res.counts.to(dev))
 
     def _track_reference_kf(self, feats) -> Optional[lie.SE3]:
         """Descriptor-only match against the reference keyframe + pose solve
@@ -955,7 +1015,9 @@ class MonoTracker:
         """Start a chunked background local BA once the map is past its
         warm-up; the robust phase runs now, the polish over the next
         frames. Returns True when started."""
-        if not getattr(self.cfg, "background_lba", True) or n_in < 5:
+        if (self.mesh is not None
+                or not getattr(self.cfg, "background_lba", True)
+                or n_in < 5):
             return False
         self._lba_drain()   # at most one solve in flight
         self._pending_lba = ChunkedLocalBA(self, window, fixed)
@@ -1038,6 +1100,8 @@ class MonoTracker:
         cfg = self.cfg
         # monocular: at least the oldest two fixed for the 7-DoF gauge
         window, fixed, n_in, n_fixed = self._ba_window_arrays(min_fixed=2)
+        if self.mesh is not None:
+            return self._local_ba_dist(window, fixed)
         if self._start_background_lba(window, fixed, n_in):
             return
         with stage("local_ba"):
@@ -1051,6 +1115,40 @@ class MonoTracker:
             STAGES.bump("num_OptKF_BA", max(0, n_in - n_fixed))
             STAGES.bump("num_edges_BA", int(n_edges))
         if self.last_kf_id >= 0 and n_in > 0:
+            self.cur_pose = _pose_at(self.map, self.last_kf_id)
+
+    def _local_ba_dist(self, window, fixed):
+        """Windowed local BA through the landmark-sharded distributed Schur
+        reduction: the window's observation triples become a general-layout
+        problem over the window's pose rows (``observation_triples``'
+        ``kf_idx`` is window-relative); non-window poses stay fixed."""
+        from ..parallel.dist_ba import distributed_bundle_adjustment
+
+        cfg = self.cfg
+        m = self.map
+        dev = self.device
+        win = torch.from_numpy(window).to(dev)
+        fix = torch.from_numpy(fixed).to(dev)
+        kf_idx, mp_idx, uv, octv, valid = ms.observation_triples(m, win)
+        inv_s2 = self.inv_s2[torch.clamp(
+            octv, 0, cfg.orb.num_levels - 1).long()]
+        win_c = torch.clamp(win, 0, m.max_kf - 1).long()
+        win_poses = lie.SE3(m.kf_pose.R[win_c], m.kf_pose.t[win_c])
+        prob = ba_mod.make_problem(
+            win_poses, m.mp_pos, kf_idx, mp_idx, uv, inv_s2, valid, fix,
+            self.cam_params, fixed_point=~m.mp_valid, max_obs=16)
+        with stage("local_ba"):
+            new_poses, new_points, _ = distributed_bundle_adjustment(
+                prob, self.mesh, cam_model=cfg.cam_model,
+                iters=cfg.ba_iters_first + cfg.ba_iters_second)
+        ok_w = (win >= 0) & ~fix
+        kf_R = masked_set(m.kf_pose.R, win_c, new_poses.R.to(dev), ok_w)
+        kf_t = masked_set(m.kf_pose.t, win_c, new_poses.t.to(dev), ok_w)
+        self.map = m._replace(
+            kf_pose=lie.SE3(kf_R, kf_t),
+            mp_pos=torch.where(m.mp_valid[:, None], new_points.to(dev),
+                               m.mp_pos))
+        if self.last_kf_id >= 0:
             self.cur_pose = _pose_at(self.map, self.last_kf_id)
 
     # -- output ------------------------------------------------------------

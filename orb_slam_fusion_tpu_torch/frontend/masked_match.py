@@ -17,6 +17,12 @@ Masks are folded into geometry exactly as the reference folds them: an
 invalid map point gets radius -1 (empty window), an invalid keypoint sits
 at (1e9, 1e9), and a missing map octave is -1e4 (gate off).
 
+``fused_window`` selects the window's rounding: by default
+``du*du + dv*dv`` with each product rounded (the Pallas kernel's order);
+with it, ``fma(dv, dv, du*du)``, the single rounding XLA:CPU gives the
+reference's dense ``sum((uv - kp)**2, -1)`` (the distributed tracker's
+window, ``parallel/dist_track.py``).
+
 ``launches`` counts kernel launches made through ``masked_match``.
 """
 
@@ -26,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .matcher import hamming_distance, masked_min2
+from .matcher import BIG, hamming_distance_rows, masked_min2
 
 launches = 0
 
@@ -55,33 +61,69 @@ def _fold(pred_uv, mp_valid, radius, kp_uv, kp_valid, mp_octave,
     return uvr, kp_uvo
 
 
-def window_mask(uvr: torch.Tensor, kp_uvo: torch.Tensor) -> torch.Tensor:
+def sq_add_f32(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``x * x + acc`` rounded once, as a fused multiply-add: the
+    exact square (float64 holds it) plus ``acc``, TwoSum for the error of
+    the float64 sum, which decides the one case float64 cannot, a sum
+    exactly halfway between two float32 values."""
+    a = x.double() * x.double()
+    b = acc.double()
+    s = a + b
+    bb = s - a
+    e = (a - (s - bb)) + (b - bb)
+    r = s.float()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    r = torch.where(((r.double() + up.double()) * 0.5 == s) & (e > 0), up, r)
+    return torch.where(((r.double() + dn.double()) * 0.5 == s) & (e < 0), dn,
+                       r)
+
+
+def window_mask(uvr: torch.Tensor, kp_uvo: torch.Tensor,
+                fused_window: bool = False) -> torch.Tensor:
     """(M, N) bool: the pairs the pixel window and the octave gate pass."""
     du = uvr[:, 0:1] - kp_uvo[None, :, 0]
     dv = uvr[:, 1:2] - kp_uvo[None, :, 1]
     r = uvr[:, 2:3]
-    ok = (du * du + dv * dv) <= r * torch.abs(r)
+    r2 = r * torch.abs(r)
+    d2 = du * du + dv * dv
+    ok = d2 <= r2
+    if fused_window:
+        # the two roundings differ by a few ulps: the pairs that close to
+        # the edge are decided by the fused value, the rest as they are
+        near = (d2 <= r2 * (1.0 + 1e-6) + 1e-30) & \
+            (d2 >= r2 * (1.0 - 1e-6) - 1e-30)
+        i, j = torch.nonzero(near, as_tuple=True)
+        ok = ok.index_put((i, j), sq_add_f32(dv[i, j], du[i, j] * du[i, j])
+                          <= r2[i, 0])
     mp_oct = uvr[:, 3:4]
     return ok & ((torch.abs(mp_oct - kp_uvo[None, :, 2]) <= 1.5)
                  | (mp_oct < 0.0))
 
 
 def masked_match_folded_plain(uvr: torch.Tensor, mp_desc: torch.Tensor,
-                              kp_uvo: torch.Tensor, kp_desc: torch.Tensor
+                              kp_uvo: torch.Tensor, kp_desc: torch.Tensor,
+                              fused_window: bool = False
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """What the kernel computes, on folded inputs, in plain PyTorch."""
-    return masked_min2(hamming_distance(mp_desc, kp_desc),
-                       window_mask(uvr, kp_uvo))
+    """What the kernel computes, on folded inputs, in plain PyTorch: the
+    Hamming distances of the pairs the window passes (the others BIG),
+    then the masked best and second best."""
+    mask = window_mask(uvr, kp_uvo, fused_window)
+    i, j = torch.nonzero(mask, as_tuple=True)
+    dist = torch.full(mask.shape, BIG, dtype=torch.int32, device=mask.device)
+    dist[i, j] = hamming_distance_rows(mp_desc[i], kp_desc[j])
+    return masked_min2(dist, mask)
 
 
 def masked_match_plain(pred_uv, mp_desc, mp_valid, radius, kp_uv, kp_desc,
-                       kp_valid, mp_octave=None, kp_octave=None):
+                       kp_valid, mp_octave=None, kp_octave=None,
+                       fused_window: bool = False):
     """Plain PyTorch version of ``masked_match`` (any device)."""
     uvr, kp_uvo = _fold(pred_uv, mp_valid, radius, kp_uv, kp_valid,
                         mp_octave, kp_octave)
     return masked_match_folded_plain(uvr, mp_desc.to(torch.int32), kp_uvo,
-                                     kp_desc.to(torch.int32))
+                                     kp_desc.to(torch.int32), fused_window)
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -96,9 +138,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
+def kernel_flags(use_octave: bool, fused_window: bool = False) -> int:
+    """The kernel's mode word: bit 0 the octave gate, bit 1 the fused
+    window rounding."""
+    return int(bool(use_octave)) | (int(bool(fused_window)) << 1)
+
+
 def masked_match_cuda(uvr: torch.Tensor, mp_desc: torch.Tensor,
                       kp_uvo: torch.Tensor, kp_desc: torch.Tensor,
-                      use_octave: bool):
+                      use_octave: bool, fused_window: bool = False):
     """Launch the kernel on folded CUDA inputs; returns 3 x (M,) int32,
     what ``masked_match_folded_plain`` returns. With ``use_octave`` False
     the kernel skips the octave gate, which the plain version passes
@@ -126,7 +174,8 @@ def masked_match_cuda(uvr: torch.Tensor, mp_desc: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(uvr.data_ptr(), mp_desc.data_ptr(), kp_uvo.data_ptr(),
-                kp_desc.data_ptr(), M, N, int(bool(use_octave)),
+                kp_desc.data_ptr(), M, N, kernel_flags(use_octave,
+                                                       fused_window),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 stream)
     if rc != 0:
@@ -140,7 +189,8 @@ def masked_match(pred_uv: torch.Tensor, mp_desc: torch.Tensor,
                  mp_valid: torch.Tensor, radius, kp_uv: torch.Tensor,
                  kp_desc: torch.Tensor, kp_valid: torch.Tensor,
                  mp_octave: Optional[torch.Tensor] = None,
-                 kp_octave: Optional[torch.Tensor] = None
+                 kp_octave: Optional[torch.Tensor] = None,
+                 fused_window: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (best_idx (M,), best (M,), second (M,)) int32, BIG where
     masked; pairs with |octave difference| > 1 are masked when octaves are
@@ -157,8 +207,10 @@ def masked_match(pred_uv: torch.Tensor, mp_desc: torch.Tensor,
         raise ValueError("give both octaves or neither")
     if dev.type == "cpu":
         return masked_match_plain(pred_uv, mp_desc, mp_valid, radius, kp_uv,
-                                  kp_desc, kp_valid, mp_octave, kp_octave)
+                                  kp_desc, kp_valid, mp_octave, kp_octave,
+                                  fused_window)
     uvr, kp_uvo = _fold(pred_uv, mp_valid, radius, kp_uv, kp_valid,
                         mp_octave, kp_octave)
     return masked_match_cuda(uvr, mp_desc, kp_uvo, kp_desc,
-                             use_octave=mp_octave is not None)
+                             use_octave=mp_octave is not None,
+                             fused_window=fused_window)

@@ -89,6 +89,21 @@ which the input hashes let a run on another machine check.
   on ``test_loop_closing_e2e.py``'s maps (flat and tree vocabularies, the
   aliased corridor) for ``tests/test_torch_loop_closing.py``.
 
+* The multi-device slice (``mesh_*``; these run the JAX package on its 8
+  virtual CPU devices, as ``tests/conftest.py`` sets them up):
+  ``mesh_dryrun.npz``, the four cases of ``__graft_entry__.py``'s
+  ``dryrun_multichip`` at its shapes (landmark-sharded BA over 64
+  keyframes and 8192 landmarks, the drifted 64-node Sim3 loop, VI-BA over
+  12 keyframes and 1024 landmarks, map-sharded tracking of M = 2048 map
+  points against F = 512 keypoints), inputs and the reference's results;
+  ``mesh_session_480x752.json``, ``MonoTracker(SlamConfig(mesh_devices=
+  8))`` at the default widths on ``test_mesh_engine.py``'s corridor (60
+  frames, render seed 11), for ``chip_smoke.py``'s ``mesh_session``;
+  ``mesh_engine_session.json``, the same at ``test_mesh_engine.py``'s own
+  configuration, for ``tests/test_torch_mesh_engine.py``;
+  ``mesh_gba_20kf.npz``, the closer of ``loop_map_20kf.npz`` with a
+  meshed facade tracker: its loop correction and ``_global_ba_dist``.
+
 Needs JAX. The settings are ``chip_smoke.py``'s own;
 ``tests/test_torch_goldens.py`` checks that the committed files still carry
 them.
@@ -102,6 +117,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
+if any(a.startswith("mesh_") for a in sys.argv[1:]):
+    # the mesh goldens run on 8 virtual CPU devices (tests/conftest.py);
+    # the others keep the single device they were written with
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
+                               "force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
@@ -1093,6 +1113,264 @@ LOOP_SESSIONS = {
 }
 
 
+def mesh_dryrun():
+    """``__graft_entry__.dryrun_multichip(8)``'s four cases, built as it
+    builds them, run on the 8-device mesh; inputs and results to
+    ``mesh_dryrun.npz`` (keys ``ba.*``, ``pg.*``, ``vi.*``, ``tr.*``)."""
+    from orb_slam_fusion_tpu.imu.factors import information_from_cov
+    from orb_slam_fusion_tpu.imu.preintegration import (
+        make_calib, preintegrate_host, zero_bias)
+    from orb_slam_fusion_tpu.parallel import (
+        distributed_bundle_adjustment, distributed_frame_update,
+        distributed_pose_graph, distributed_visual_inertial_ba,
+        make_slam_mesh, pad_map_for_mesh)
+    from orb_slam_fusion_tpu.solver import ba
+    from orb_slam_fusion_tpu.solver.pose_graph import PoseGraphProblem
+    from orb_slam_fusion_tpu.solver.vi_ba import (InertialFactorBatch,
+                                                  VIState)
+    mesh = make_slam_mesh(devices=jax.devices()[:8])
+    out = {}
+
+    def put(prefix, **kw):
+        for k, v in kw.items():
+            out[f"{prefix}.{k}"] = np.asarray(v)
+
+    # (1) sharded Schur BA: 64 keyframes, 8192 landmarks, 6 obs each
+    K, M, OBS = 64, 8192, 6
+    rng = np.random.RandomState(0)
+    pts = jnp.asarray(rng.uniform(-8, 8, (M, 3)), jnp.float32) \
+        + jnp.array([0.0, 0.0, 10.0])
+    poses = lie.se3_exp(jnp.asarray(
+        np.concatenate([0.08 * rng.randn(K, 3),
+                        0.02 * rng.randn(K, 3)], axis=1)
+        + np.concatenate([np.linspace(0, 4, K)[:, None]
+                          * np.array([[1.0, 0.0, 0.0]]),
+                          np.zeros((K, 3))], axis=1), jnp.float32))
+    base = np.asarray(rng.randint(0, K - OBS, M))
+    kf_idx = jnp.asarray((base[:, None]
+                          + np.arange(OBS)[None, :]).reshape(-1), jnp.int32)
+    mp_idx = jnp.repeat(jnp.arange(M), OBS).astype(jnp.int32)
+    cam = jnp.array([400.0, 400.0, 320.0, 240.0], jnp.float32)
+    pc = lie.se3_apply(lie.SE3(poses.R[kf_idx], poses.t[kf_idx]),
+                       pts[mp_idx])
+    uv = cameras.pinhole_project(cam, pc)
+    valid = pc[..., 2] > 0.2
+    fixed = jnp.zeros(K, bool).at[0].set(True).at[1].set(True)
+    poses0 = lie.se3_boxplus(poses, jnp.asarray(0.01 * rng.randn(K, 6),
+                                                jnp.float32))
+    pts0 = pts + jnp.asarray(0.05 * rng.randn(M, 3), jnp.float32)
+    inv_s2 = jnp.ones(M * OBS)
+    prob = ba.make_problem(poses0, pts0, kf_idx, mp_idx, uv, inv_s2, valid,
+                           fixed, cam, max_obs=OBS)
+    new_poses, new_points, costs = distributed_bundle_adjustment(
+        prob, mesh, iters=3)
+    put("ba", R=poses0.R, t=poses0.t, points=pts0, kf_idx=kf_idx,
+        mp_idx=mp_idx, uv=uv, inv_s2=inv_s2, valid=valid, fixed=fixed,
+        cam=cam, max_obs=OBS, iters=3, out_R=new_poses.R, out_t=new_poses.t,
+        out_points=new_points, out_costs=costs)
+    print("mesh_dryrun BA", np.asarray(costs), flush=True)
+
+    # (2) pose graph on a drifted 64-node loop topology
+    Kp = 64
+    gt = []
+    for k in range(Kp):
+        ang = 2 * np.pi * k / Kp
+        Rk = np.asarray(lie.so3_exp(jnp.array([0.0, ang, 0.0],
+                                              jnp.float32)))
+        tk = np.array([np.sin(ang) * 5, 0.0, 5 - np.cos(ang) * 5],
+                      np.float32)
+        gt.append(lie.Sim3(jnp.asarray(1.0, jnp.float32),
+                           jnp.asarray(Rk, jnp.float32), jnp.asarray(tk)))
+    ei, ej, rels = [], [], []
+    for k in range(Kp - 1):
+        ei.append(k)
+        ej.append(k + 1)
+        rels.append(lie.sim3_compose(gt[k + 1], lie.sim3_inverse(gt[k])))
+    for k in range(0, Kp - 2, 2):
+        ei.append(k)
+        ej.append(k + 2)
+        rels.append(lie.sim3_compose(gt[k + 2], lie.sim3_inverse(gt[k])))
+    ei.append(Kp - 1)
+    ej.append(0)
+    rels.append(lie.sim3_compose(gt[0], lie.sim3_inverse(gt[Kp - 1])))
+    rel_b = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *rels)
+    drift = []
+    for k in range(Kp):
+        xi = np.zeros(7, np.float32)
+        xi[:3] = rng.randn(3) * 0.08 * (k / Kp)
+        xi[6] = 0.15 * (k / Kp)
+        drift.append(lie.sim3_compose(lie.sim3_exp(jnp.asarray(xi)), gt[k]))
+    init_b = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *drift)
+    E = len(ei)
+    pg = PoseGraphProblem(
+        poses=init_b, edge_i=jnp.asarray(ei, jnp.int32),
+        edge_j=jnp.asarray(ej, jnp.int32), edge_rel=rel_b,
+        edge_weight=jnp.ones(E, jnp.float32), edge_valid=jnp.ones(E, bool),
+        fixed=jnp.zeros(Kp, bool).at[0].set(True))
+    pg_poses, pg_costs = distributed_pose_graph(pg, mesh, iters=10)
+    put("pg", s=init_b.s, R=init_b.R, t=init_b.t, edge_i=pg.edge_i,
+        edge_j=pg.edge_j, rel_s=rel_b.s, rel_R=rel_b.R, rel_t=rel_b.t,
+        fixed=pg.fixed, iters=10, out_s=pg_poses.s, out_R=pg_poses.R,
+        out_t=pg_poses.t, out_costs=pg_costs)
+    print("mesh_dryrun PG", np.asarray(pg_costs), flush=True)
+
+    # (3) distributed VI-BA: 15-dof states + preintegration chain
+    Kv, Mv = 12, 1024
+    calib = make_calib()
+    dt, n_per = 5e-3, 50
+    vel_w = np.array([0.4, 0.0, 0.1], np.float32)
+    accs = np.tile(np.array([0.0, 0.0, 9.81], np.float32),
+                   ((Kv - 1) * n_per, 1))
+    gyros = np.zeros(((Kv - 1) * n_per, 3), np.float32)
+    dts = np.full((Kv - 1) * n_per, dt, np.float32)
+    p_wb = np.asarray([vel_w * (k * n_per * dt) for k in range(Kv)],
+                      np.float32)
+    R_cw = np.tile(np.eye(3, dtype=np.float32), (Kv, 1, 1))
+    vi_poses = lie.SE3(jnp.asarray(R_cw), jnp.asarray(-p_wb))
+    pres = [preintegrate_host(accs[k * n_per:(k + 1) * n_per],
+                              gyros[k * n_per:(k + 1) * n_per],
+                              dts[k * n_per:(k + 1) * n_per], zero_bias(),
+                              calib) for k in range(Kv - 1)]
+    pre_b = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *pres)
+    info = jax.vmap(information_from_cov)(pre_b)
+    ifac = InertialFactorBatch(
+        i=jnp.arange(Kv - 1, dtype=jnp.int32),
+        j=jnp.arange(1, Kv, dtype=jnp.int32),
+        pre=pre_b, info=info, valid=jnp.ones(Kv - 1, bool))
+    vpts = jnp.asarray(rng.uniform(-4, 4, (Mv, 3)), jnp.float32) \
+        + jnp.array([0.0, 0.0, 8.0])
+    vbase = np.asarray(rng.randint(0, Kv - 4, Mv))
+    vkf = jnp.asarray((vbase[:, None] + np.arange(4)[None, :]
+                       ).reshape(-1), jnp.int32)
+    vmp = jnp.repeat(jnp.arange(Mv), 4).astype(jnp.int32)
+    vpc = lie.se3_apply(lie.SE3(vi_poses.R[vkf], vi_poses.t[vkf]),
+                        vpts[vmp])
+    vuv = cameras.pinhole_project(cam, vpc)
+    vvalid = vpc[..., 2] > 0.2
+    vfixed = jnp.zeros(Kv, bool).at[0].set(True)
+    vpts0 = vpts + jnp.asarray(0.03 * rng.randn(Mv, 3), jnp.float32)
+    vprob = ba.make_problem(vi_poses, vpts0, vkf, vmp, vuv,
+                            jnp.ones(Mv * 4), vvalid, vfixed, cam,
+                            max_obs=4)
+    dxi = jnp.asarray(0.01 * rng.randn(Kv, 6), jnp.float32).at[0].set(0.0)
+    state0 = VIState(
+        poses=lie.se3_boxplus(vi_poses, dxi),
+        vel=jnp.broadcast_to(jnp.asarray(vel_w), (Kv, 3))
+        + jnp.asarray(0.05 * rng.randn(Kv, 3), jnp.float32),
+        bg=jnp.zeros((Kv, 3)) + 0.002, ba=jnp.zeros((Kv, 3)) + 0.02)
+    vi_state, vi_points, vi_costs = distributed_visual_inertial_ba(
+        state0, vprob, ifac, calib, mesh, fixed_pose=vfixed, iters=3)
+    put("vi", R=state0.poses.R, t=state0.poses.t, vel=state0.vel,
+        bg=state0.bg, ba=state0.ba, points=vpts0, kf_idx=vkf, mp_idx=vmp,
+        uv=vuv, valid=vvalid, fixed=vfixed, cam=cam, max_obs=4, iters=3,
+        ifac_i=ifac.i, ifac_j=ifac.j, ifac_info=info, ifac_valid=ifac.valid,
+        out_R=vi_state.poses.R, out_t=vi_state.poses.t, out_vel=vi_state.vel,
+        out_bg=vi_state.bg, out_ba=vi_state.ba, out_points=vi_points,
+        out_costs=vi_costs)
+    for f in pre_b._fields:
+        v = getattr(pre_b, f)
+        if f == "bias0":
+            put("vi", pre_bias0_gyro=v.gyro, pre_bias0_acc=v.acc)
+        else:
+            out[f"vi.pre_{f}"] = np.asarray(v)
+    for f in calib._fields:
+        out[f"vi.calib_{f}"] = np.asarray(getattr(calib, f))
+    print("mesh_dryrun VI", np.asarray(vi_costs), flush=True)
+
+    # (4) distributed per-frame tracking: map sharded over the mesh
+    Mt, Ft = 2048, 512
+    desc = jnp.asarray(rng.randint(0, 2 ** 31, (Mt, 8)).astype(np.uint32))
+    pose_t = lie.se3_exp(jnp.asarray(
+        [0.02, -0.01, 0.03, 0.004, 0.006, -0.003], jnp.float32))
+    pc_t = lie.se3_apply(pose_t, pts[:Mt])
+    uv_t = cameras.pinhole_project(cam, pc_t)
+    inb = ((uv_t[:, 0] >= 0) & (uv_t[:, 0] < 640)
+           & (uv_t[:, 1] >= 0) & (uv_t[:, 1] < 480))
+    sel = jnp.nonzero(inb, size=Ft, fill_value=0)[0]
+    mp = pad_map_for_mesh(mesh, pts[:Mt], desc, jnp.ones(Mt, bool),
+                          jnp.zeros(Mt, jnp.int32), jnp.zeros(Mt, jnp.int32))
+    res = distributed_frame_update(
+        *mp, lie.se3_identity(), lie.se3_identity(),
+        uv_t[sel], desc[sel], inb[sel], jnp.ones(Ft), cam, mesh)
+    put("tr", mp_pos=pts[:Mt], mp_desc=desc, kp_uv=uv_t[sel],
+        kp_desc=desc[sel], kp_valid=inb[sel], cam=cam, true_R=pose_t.R,
+        true_t=pose_t.t, out_R=res.pose.R, out_t=res.pose.t,
+        out_match_idx=res.match_idx, out_inlier=res.inlier,
+        out_mp_visible=res.mp_visible, out_mp_found=res.mp_found,
+        out_counts=res.counts)
+    print("mesh_dryrun track", np.asarray(res.counts), flush=True)
+    out["jax_version"] = np.asarray(jax.__version__)
+    np.savez_compressed(os.path.join(OUT, MESH_DRYRUN_FILE), **out)
+
+
+MESH_DRYRUN_FILE = "mesh_dryrun.npz"
+MESH_GBA_FILE = "mesh_gba_20kf.npz"
+MESH_WORLD, MESH_RENDER = chip_smoke.MESH_WORLD, chip_smoke.MESH_RENDER
+
+
+def mesh_session(cfg_dict):
+    """``MonoTracker`` with ``mesh_devices`` on test_mesh_engine.py's
+    corridor: per frame the state, inliers, counts and closed loops."""
+    cfg = config_of(cfg_dict)
+    world = sim.make_corridor_world(**MESH_WORLD)
+    tr = MonoTracker(cfg)
+    assert tr.mesh is not None and tr.mesh.shape["mp"] == 8
+    cam = jnp.asarray(cfg.cam_params)
+    nf = cfg.orb.n_features
+    frames = []
+    for k in range(MESH_WORLD["n_frames"]):
+        f = sim.render_frame(world, k, cam, cfg.image_size, nf,
+                             **MESH_RENDER)
+        rec = tr.process_features(f, float(world.timestamps[k]))
+        frames.append(loop_record(tr, rec, feats_sha(f)))
+        print("mesh", k, frames[-1]["state"], frames[-1]["tracked"],
+              frames[-1]["n_kf"], frames[-1]["n_mp"], flush=True)
+    return _loop_finish(tr, world, frames, dict(
+        config=cfg_dict, world=MESH_WORLD, render=MESH_RENDER),
+        with_scale=True)
+
+
+def mesh_gba():
+    """The closer of ``loop_map()`` with a facade tracker on the 8-device
+    mesh: the loop correction, then ``_global_ba_dist`` (synchronous)."""
+    import test_loop_closing_e2e as e2e
+    from orb_slam_fusion_tpu.engine.loop_closing import LoopCloser
+    from orb_slam_fusion_tpu.parallel import make_slam_mesh
+    m, _, _, cfg = e2e.build_drifted_loop_map()
+    K = int(m.n_kf)
+    tracker = e2e.FakeTracker(m, e2e.CAM, K - 1)
+    tracker.mesh = make_slam_mesh(devices=jax.devices()[:8])
+    closer = LoopCloser(cfg, cfg.max_keyframes, vocab_words=2048)
+    for k in range(K):
+        closer.add_keyframe(k, m.kf_desc[k], m.kf_feat_valid[k])
+    out = {}
+    for k in range(max(0, K - 5), K):
+        tracker.last_kf_id = k
+        tracker.cur_pose = lie.SE3(tracker.map.kf_pose.R[k],
+                                   tracker.map.kf_pose.t[k])
+        if closer.try_close(tracker):
+            out["closed_at"] = np.asarray(k)
+    assert closer.pending_gba is None
+    i, j, _ = closer.loop_edges[0]
+    out.update(edge=np.asarray([i, j]),
+               final_R=np.asarray(tracker.map.kf_pose.R),
+               final_t=np.asarray(tracker.map.kf_pose.t),
+               final_mp_pos=np.asarray(tracker.map.mp_pos),
+               n_mp=np.asarray(int(tracker.map.n_mp)),
+               stats=np.asarray(json.dumps(closer.stats)))
+    np.savez_compressed(os.path.join(OUT, MESH_GBA_FILE), **out)
+    print("wrote", MESH_GBA_FILE, "closed at", int(out["closed_at"]),
+          flush=True)
+
+
+MESH_SESSIONS = {
+    "mesh_session_480x752.json": lambda: mesh_session(
+        chip_smoke.MESH_SESSION_CONFIG),
+    "mesh_engine_session.json": lambda: mesh_session(
+        chip_smoke.MESH_ENGINE_CONFIG),
+}
+
+
 SESSIONS = {"mono_session_480x752.json": mono_session,
             "image_session_240x376.json": image_session,
             "stereo_session_480x752.json": stereo_session,
@@ -1111,7 +1389,9 @@ SESSIONS = {"mono_session_480x752.json": mono_session,
             SYSTEM_MONO_FILE: system_mono_session,
             chip_smoke.LOOP_MAP_FILE: loop_map,
             LOOP_STEPS_FILE: loop_closer_steps,
-            **LOOP_SESSIONS}
+            MESH_DRYRUN_FILE: mesh_dryrun,
+            MESH_GBA_FILE: mesh_gba,
+            **LOOP_SESSIONS, **MESH_SESSIONS}
 
 
 def main():
@@ -1119,7 +1399,8 @@ def main():
     names = sys.argv[1:] or list(SESSIONS)
     for name, fn in ((n, SESSIONS[n]) for n in names):
         t0 = time.perf_counter()
-        if name in (chip_smoke.LOOP_MAP_FILE, LOOP_STEPS_FILE):
+        if name in (chip_smoke.LOOP_MAP_FILE, LOOP_STEPS_FILE,
+                    MESH_DRYRUN_FILE, MESH_GBA_FILE):
             fn()
             continue
         g = fn()

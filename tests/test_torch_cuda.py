@@ -212,10 +212,12 @@ def test_session_frames_launch_the_kernel(cuda):
     tr = MonoTracker(cfg, device=cuda)
     seen, launch = [], mm.masked_match_cuda
 
-    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
-        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
-        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
-                                                       kp_desc)))
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+               fused_window=False):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+                     fused_window)
+        seen.append((out, mm.masked_match_folded_plain(
+            uvr, mp_desc, kp_uvo, kp_desc, fused_window)))
         return out
 
     mm.masked_match_cuda = record
@@ -281,10 +283,12 @@ def test_stereo_session_frames_launch_the_kernel(cuda, mode):
                 device=cuda, **render)
     seen, launch = [], mm.masked_match_cuda
 
-    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
-        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
-        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
-                                                       kp_desc)))
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+               fused_window=False):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+                     fused_window)
+        seen.append((out, mm.masked_match_folded_plain(
+            uvr, mp_desc, kp_uvo, kp_desc, fused_window)))
         return out
 
     mm.masked_match_cuda = record
@@ -452,10 +456,12 @@ def test_stereo_vio_frames_launch_the_kernel(cuda):
     tr = StereoVioTracker(cfg, 0.11, make_calib(device=cuda), device=cuda)
     seen, launch = [], mm.masked_match_cuda
 
-    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
-        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
-        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
-                                                       kp_desc)))
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+               fused_window=False):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+                     fused_window)
+        seen.append((out, mm.masked_match_folded_plain(
+            uvr, mp_desc, kp_uvo, kp_desc, fused_window)))
         return out
 
     mm.masked_match_cuda = record
@@ -482,10 +488,12 @@ def _recording_launches(seen):
     version on its own inputs."""
     launch = mm.masked_match_cuda
 
-    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave):
-        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave)
-        seen.append((out, mm.masked_match_folded_plain(uvr, mp_desc, kp_uvo,
-                                                       kp_desc)))
+    def record(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+               fused_window=False):
+        out = launch(uvr, mp_desc, kp_uvo, kp_desc, use_octave,
+                     fused_window)
+        seen.append((out, mm.masked_match_folded_plain(
+            uvr, mp_desc, kp_uvo, kp_desc, fused_window)))
         return out
     mm.masked_match_cuda = record
     return launch
@@ -581,3 +589,92 @@ def test_global_ba_pcg_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(card[2], cpu[2])
     np.testing.assert_allclose(card[0], cpu[0], atol=5e-4)
     np.testing.assert_allclose(card[1], cpu[1], atol=5e-4, rtol=1e-4)
+
+
+def _edge_case(M, N, seed):
+    """Keypoints placed on map points' window edges (r = 15), where the
+    fused window rounding (fma(dv, dv, du*du)) and the separately rounded
+    sum decide differently, plus random ones."""
+    rng = np.random.RandomState(seed)
+    uv = rng.uniform(0, 752, (M, 2)).astype(np.float32)
+    kp = rng.uniform(0, 752, (N, 2)).astype(np.float32)
+    rows = rng.randint(0, M, N // 2)
+    dv = rng.uniform(-14, 14, N // 2).astype(np.float32)
+    kp[: N // 2, 1] = uv[rows, 1] + dv
+    du = np.sqrt(np.maximum(225.0 - (kp[: N // 2, 1] - uv[rows, 1]) ** 2,
+                            0)).astype(np.float32)
+    kp[: N // 2, 0] = uv[rows, 0] + du * np.sign(rng.randn(N // 2))
+    desc = rng.randint(0, 2 ** 32, (M, 8), dtype=np.uint64).astype(np.uint32)
+    kdesc = rng.randint(0, 2 ** 32, (N, 8), dtype=np.uint64).astype(np.uint32)
+    kdesc[: N // 2] = desc[rows] ^ np.uint32(1)
+    return uv, desc, kp, kdesc
+
+
+@pytest.mark.parametrize("M,N", [(1024, 1024), (256, 512)],
+                         ids=["session_shard", "dryrun_shard"])
+def test_kernel_fused_window_matches_plain_at_shard_shape(cuda, M, N):
+    """The distributed tracker's calls: one shard of an 8-way split of the
+    8192-point map (or the dryrun's 2048) against 1024 (512) keypoints,
+    the fused window mode, bit-exact against the plain version on pairs
+    at the window's edge, where the two roundings disagree."""
+    uv, desc, kp, kdesc = _edge_case(M, N, M + N)
+    args = [torch.from_numpy(uv).to(cuda), desc_to_torch(desc, cuda),
+            torch.ones(M, dtype=torch.bool, device=cuda), 15.0,
+            torch.from_numpy(kp).to(cuda), desc_to_torch(kdesc, cuda),
+            torch.ones(N, dtype=torch.bool, device=cuda)]
+    before = mm.launches
+    got = mm.masked_match(*args, fused_window=True)
+    assert mm.launches == before + 1
+    want = mm.masked_match_plain(*args, fused_window=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    uvr, kp_uvo = mm._fold(args[0], args[2], 15.0, args[4], args[6], None,
+                           None)
+    assert not torch.equal(mm.window_mask(uvr, kp_uvo, True),
+                           mm.window_mask(uvr, kp_uvo))
+    plain = mm.masked_match(*args)
+    assert any(not torch.equal(a, b) for a, b in zip(plain, got))
+
+
+def test_distributed_frame_launches_two_kernels_per_shard(cuda):
+    """A distributed frame over ``[cuda] * 8`` launches the kernel 2 x 8
+    times (coarse and fine on every shard) and finds the host CPU's
+    matches, inliers and counts."""
+    from orb_slam_fusion_tpu_torch import cameras, lie
+    from orb_slam_fusion_tpu_torch.parallel import (
+        distributed_frame_update, make_slam_mesh, pad_map_for_mesh)
+
+    rng = np.random.RandomState(3)
+    M, F = 2048, 512
+    pts = (rng.uniform(-8, 8, (M, 3)) + [0, 0, 10]).astype(np.float32)
+    desc = rng.randint(0, 2 ** 31, (M, 8)).astype(np.uint32)
+    cam = torch.tensor([400.0, 400.0, 320.0, 240.0])
+    pose = lie.se3_exp(torch.tensor([0.02, -0.01, 0.03, 0.004, 0.006,
+                                     -0.003]))
+    uv = cameras.pinhole_project(cam, lie.se3_apply(
+        pose, torch.from_numpy(pts))).numpy()
+    inb = np.nonzero((uv[:, 0] >= 0) & (uv[:, 0] < 640) & (uv[:, 1] >= 0)
+                     & (uv[:, 1] < 480))[0][:F]
+    res = {}
+    for dev in ("cpu", cuda):
+        mesh = make_slam_mesh(devices=[dev] * 8)
+        mp = pad_map_for_mesh(
+            mesh, torch.from_numpy(pts).to(dev), desc_to_torch(desc, dev),
+            torch.ones(M, dtype=torch.bool, device=dev),
+            torch.zeros(M, dtype=torch.int32, device=dev),
+            torch.zeros(M, dtype=torch.int32, device=dev))
+        ident = lie.se3_identity(device=dev)
+        before = mm.launches
+        r = distributed_frame_update(
+            *mp, ident, ident, torch.from_numpy(uv[inb]).to(dev),
+            desc_to_torch(desc[inb], dev),
+            torch.ones(len(inb), dtype=torch.bool, device=dev),
+            torch.ones(len(inb), device=dev), cam.to(dev), mesh)
+        res[str(dev)] = (r, mm.launches - before)
+    (cpu, n_cpu), (card, n_card) = res["cpu"], res[str(cuda)]
+    assert n_cpu == 0 and n_card == 16
+    for f in ("match_idx", "inlier", "mp_visible", "mp_found", "counts"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    np.testing.assert_allclose(card.pose.t.cpu().numpy(),
+                               cpu.pose.t.numpy(), atol=1e-5)

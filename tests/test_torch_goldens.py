@@ -404,3 +404,50 @@ def test_system_mono_snapshot_is_complete():
         "viewer_html", "debug_first_line"}
     z = np.load(GOLDENS / mk.SYSTEM_MONO_ATLAS)
     assert int(z["n_kf"]) == g["n_kf"] and "vocab_md5" in z.files
+
+
+@pytest.mark.parametrize("name,config", [
+    ("mesh_session_480x752.json", chip_smoke.MESH_SESSION_CONFIG),
+    ("mesh_engine_session.json", chip_smoke.MESH_ENGINE_CONFIG)])
+def test_mesh_goldens_match_chip_smoke(name, config):
+    """The meshed sessions' goldens carry ``chip_smoke.py``'s settings
+    (``test_mesh_engine.py``'s corridor and render; 8 shards), their
+    records are complete, and the port regenerates their inputs."""
+    g = _load(name)
+    assert g["config"] == json.loads(json.dumps(config))
+    assert g["config"]["mesh_devices"] == chip_smoke.MESH_SHARDS
+    assert g["world"] == chip_smoke.MESH_WORLD == mk.MESH_WORLD
+    assert g["render"] == chip_smoke.MESH_RENDER
+    assert len(g["frames"]) == g["world"]["n_frames"]
+    assert g["tracked"] > 45 and g["ate_m"] < 0.10
+    cfg = chip_smoke._config(g["config"])
+    world = sim.make_corridor_world(**g["world"])
+    for k in (0, 31, g["world"]["n_frames"] - 1):
+        a = sim.render_frame_numpy(world, k, cfg.cam_params, cfg.image_size,
+                                   cfg.orb.n_features, **g["render"])
+        assert chip_smoke._sha(*(a[n] for n in chip_smoke.FEATURE_FIELDS)) \
+            == g["frames"][k]["inputs_sha256"], k
+
+
+def test_mesh_snapshots_are_small_and_complete():
+    """``mesh_dryrun.npz`` holds every input and result of the four
+    dryrun cases at ``__graft_entry__.dryrun_multichip``'s shapes, and
+    ``mesh_gba_20kf.npz`` the meshed closer's results on the loop map; the
+    two stay under 1 MB."""
+    z = np.load(GOLDENS / chip_smoke.MESH_DRYRUN_FILE)
+    assert z["ba.points"].shape == (8192, 3) and z["ba.R"].shape[0] == 64
+    assert z["ba.kf_idx"].shape == (8192 * 6,) and int(z["ba.iters"]) == 3
+    assert z["pg.s"].shape == (64,) and int(z["pg.iters"]) == 10
+    assert z["vi.R"].shape[0] == 12 and z["vi.points"].shape == (1024, 3)
+    assert z["tr.mp_pos"].shape == (2048, 3) and z["tr.kp_uv"].shape[0] == 512
+    c = z["ba.out_costs"]
+    assert c[-1] < c[0] and z["tr.out_counts"].tolist() == [512, 512]
+    assert z["pg.out_costs"][-1] < 0.1 * z["pg.out_costs"][0]
+    for k in z.files:
+        if z[k].dtype.kind == "f":
+            assert np.isfinite(z[k]).all(), k
+    m = np.load(GOLDENS / "mesh_gba_20kf.npz")
+    assert int(m["closed_at"]) == 18 and np.isfinite(m["final_t"]).all()
+    size = sum((GOLDENS / n).stat().st_size for n in (
+        chip_smoke.MESH_DRYRUN_FILE, "mesh_gba_20kf.npz"))
+    assert size < 1e6

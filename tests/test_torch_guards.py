@@ -8,7 +8,8 @@
 * Entry points that create tensors (the session's ``MonoTracker``, the
   port's ``sim.render_frame`` and ``prng.uniform``, the ``System`` facade
   and its settings loader included) run on CUDA unless told otherwise:
-  with no GPU and no ``device=``, they raise instead of running on the CPU.
+  with no GPU and no ``device=``, they raise instead of running on the CPU;
+  so does ``make_slam_mesh`` without an explicit device list.
 * The port imports no PyYAML, OpenCV or matplotlib at import time (the
   GPU machine has none): the fresh interpreter blocks them too.
 """
@@ -161,6 +162,20 @@ def test_entry_points_refuse_cpu_without_device(monkeypatch):
     assert make_empty_map(4, 8, 4, device="cpu").mp_pos.device.type == "cpu"
     tr = MonoTracker(SlamConfig(loop_closing=False), device="cpu")
     assert tr.map.mp_pos.device.type == "cpu"
+
+
+def test_mesh_refuses_cpu_without_devices(monkeypatch):
+    """``make_slam_mesh`` with no GPU and no ``devices`` raises (it never
+    falls back to the CPU), and so does a meshed tracker with no device;
+    an explicit device list, a repeated CPU included, builds a mesh."""
+    from orb_slam_fusion_tpu_torch.parallel import make_slam_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (make_slam_mesh, lambda: make_slam_mesh(8),
+                 lambda: MonoTracker(SlamConfig(loop_closing=False,
+                                                mesh_devices=8))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert make_slam_mesh(devices=["cpu"] * 3).shape == {"mp": 3}
 
 
 def test_stereo_entry_points_refuse_cpu_without_device(monkeypatch):

@@ -174,9 +174,14 @@ def test_constructor_refuses_unported_modes():
     np.testing.assert_array_equal(
         lc.db.vocab.words.numpy().view(np.uint32),
         np.asarray(j_vocab(4096).words))
-    with pytest.raises(NotImplementedError, match="A15"):
-        MonoTracker(SlamConfig(loop_closing=False, mesh_devices=2),
-                    device="cpu")
+    # A15 is ported: mesh_devices on a CPU tracker builds a mesh of that
+    # many CPU shards (no refusal); without it there is no mesh
+    tr = MonoTracker(SlamConfig(loop_closing=False, mesh_devices=2),
+                     device="cpu")
+    assert tr.mesh is not None and tr.mesh.shape == {"mp": 2}
+    assert [d.type for d in tr.mesh.devices] == ["cpu", "cpu"]
+    assert MonoTracker(SlamConfig(loop_closing=False),
+                       device="cpu").mesh is None
     # A11 is ported: a radial-tangential distortion undistorts keypoints
     # (held to the reference in tests/test_torch_cameras_kb8.py); only an
     # unknown camera model is refused
