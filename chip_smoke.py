@@ -479,6 +479,16 @@ def check_masked_match(dev):
         in_window_pairs=res["in_window_pairs"], library_ms=None, ok=True)
 
 
+def _require_fused(label, calls):
+    """The one-device tracking step launches the kernel in the
+    fused-window mode (the reference's jitted window rounds as
+    ``fma(dv, dv, du*du)``, ROADMAP C11); the captured calls are checked
+    and timed in that mode."""
+    if not all(c[5] for c in calls):
+        raise RuntimeError(f"{label}: a tracking-step masked-match call "
+                           f"was not launched in the fused-window mode")
+
+
 def capture_match_inputs(fn):
     """Run ``fn`` once and return the folded inputs of every masked-match
     launch it makes (copies), in call order."""
@@ -579,6 +589,7 @@ def run_main_path(dev):
     if len(calls) != 3:
         raise RuntimeError(f"{len(calls)} masked-match calls in one tracking "
                            f"step, expected 3")
+    _require_fused("main path", calls)
     match_calls = [time_match_call(name, *args)
                    for name, args in zip(("coarse", "widened", "fine"),
                                          calls)]
@@ -922,6 +933,14 @@ def _image_config():
     return _config(IMAGE_CONFIG)
 
 
+# extraction images at a portrait size and at 240x320, whose deeper levels
+# the reference sums over Eigen's k shards: (label, seed, h, w); their
+# reference pyramids' digests are in tests/torch_goldens/pyramid_sweep.json
+# ("chip")
+PYRAMID_IMAGES = (("portrait 752x480", 7, 752, 480),
+                  ("240x320", 8, 240, 320))
+
+
 def check_features(dev):
     """ORB extraction on the card and on the host CPU, through the port,
     must agree bit for bit (the CPU is pinned to the reference by the
@@ -931,6 +950,7 @@ def check_features(dev):
     from orb_slam_fusion_tpu_torch import sim, synth
     from orb_slam_fusion_tpu_torch.frontend.extractor import (
         OrbParams, extract_features)
+    from orb_slam_fusion_tpu_torch.frontend.pyramid import build_pyramid
 
     world = sim.world_from_trajectory(
         _gentle_positions(IMAGE_WORLD["n_frames"]),
@@ -942,6 +962,24 @@ def check_features(dev):
         ("image-session frame 20, 240x376",
          sim.render_image(world, 20, cfg.cam_params, cfg.image_size),
          cfg.orb)]
+    with open(os.path.join(GOLDEN_DIR, "pyramid_sweep.json")) as fh:
+        sweep = json.load(fh)["chip"]
+    for (label, seed, h, w), g in zip(PYRAMID_IMAGES, sweep):
+        if (g["label"], g["seed"], g["h"], g["w"]) != (label, seed, h, w):
+            raise RuntimeError(f"pyramid golden entry {g['label']} does not "
+                               f"describe the {label} image")
+        img = synth.textured_image(np.random.RandomState(seed), h, w)
+        params = OrbParams(n_features=N_FEAT, num_levels=N_LEVELS)
+        levels = build_pyramid(torch.from_numpy(img).to(dev), N_LEVELS,
+                               params.scale_factor)
+        for lvl, (lv, want) in enumerate(zip(levels, g["digests"])):
+            if _sha(lv.cpu().numpy()) != want:
+                raise RuntimeError(f"pyramid of the {label} image: level "
+                                   f"{lvl} differs from the reference's")
+        print(f"features: {label}: {N_LEVELS}-level pyramid on the card "
+              f"equals the reference's level by level (golden digests)",
+              flush=True)
+        cases.append((label, img, params))
     for label, img, params in cases:
         card = extract_features(torch.from_numpy(img).to(dev), params)
         host = extract_features(torch.from_numpy(img), params)
@@ -1216,10 +1254,11 @@ def _session_calls(label, tracker, feats):
     if len(calls) != step.MATCH_LAUNCHES_PER_FRAME:
         raise RuntimeError(f"{len(calls)} masked-match calls in a {label} "
                            f"tracking step")
+    _require_fused(label, calls)
     return [{k: c[k] for k in ("call", "M", "N", "visible_rows",
                                "in_window_pairs", "kernel_ms", "call_ms",
                                "plain_ms", "bound_ms", "bound_by",
-                               "dense_bound_ms")}
+                               "dense_bound_ms", "fused_window")}
             for c in (time_match_call(f"{label} {name}", *args)
                       for name, args in zip(("coarse", "widened", "fine"),
                                             calls))]
@@ -3192,7 +3231,11 @@ def main():
     report["main_path_calls"] = [
         {k: c[k] for k in ("call", "visible_rows", "in_window_pairs",
                            "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                           "dense_bound_ms")} for c in match_calls]
+                           "dense_bound_ms", "fused_window")} for c in match_calls]
+    report["modes"] = {
+        "synthetic_check": "plain window (du*du + dv*dv)",
+        "one_device_step": "fused window (fma(dv, dv, du*du), mode bit 1)",
+        "mesh_step": "fused window (mode bit 1)"}
     print(json.dumps({"kernels": [report]}), flush=True)
     print(card, flush=True)
     _phase("report", t0)

@@ -22,6 +22,7 @@ from ..frontend import matcher
 from ..map import map_state as ms
 from ..map.map_state import vec_norm
 from ..utils import masked_set, masked_set_last
+from ..utils.fused import sum_sq_f32
 
 
 def _triangulate_pair(pose_a: lie.SE3, pose_b: lie.SE3, rays_a, rays_b,
@@ -52,10 +53,10 @@ def _triangulate_pair(pose_a: lie.SE3, pose_b: lie.SE3, rays_a, rays_b,
     cosp = torch.sum(v1 * v2, dim=-1) / torch.clamp(
         vec_norm(v1) * vec_norm(v2), min=1e-12)
 
-    e_a = torch.sum((X_a[..., :2] / torch.clamp(z_a[..., None], min=1e-9)
-                     - rays_a[..., :2]) ** 2, dim=-1)
-    e_b = torch.sum((X_b[..., :2] / torch.clamp(z_b[..., None], min=1e-9)
-                     - rays_b[..., :2]) ** 2, dim=-1)
+    e_a = sum_sq_f32(X_a[..., :2] / torch.clamp(z_a[..., None], min=1e-9)
+                     - rays_a[..., :2])
+    e_b = sum_sq_f32(X_b[..., :2] / torch.clamp(z_b[..., None], min=1e-9)
+                     - rays_b[..., :2])
     th_a = 5.991 * s2a * inv_f * inv_f
     th_b = 5.991 * s2b * inv_f * inv_f
     good = (pair_valid & (z_a > 0.05) & (z_b > 0.05)
@@ -174,7 +175,7 @@ def mapping_step(m: ms.MapState, pose: lie.SE3, timestamp, kp_uv, kp_desc,
         uv_pred, m.mp_desc, vis, pred_oct, kp_uv, kp_desc, kp_valid,
         kp_octave, radius=4.0 * ms.SCALE_FACTOR ** pred_oct.to(
             torch.float32),
-        max_dist=matcher.TH_LOW, octave_window=1)
+        max_dist=matcher.TH_LOW, octave_window=1, fused=True)
     midx_c = torch.clamp(midx, 0, F - 1).long()
     bound = cur_obs[midx_c]
     mp_rows = torch.arange(m.max_mp, dtype=i32, device=dev)
@@ -243,8 +244,8 @@ def mapping_step(m: ms.MapState, pose: lie.SE3, timestamp, kp_uv, kp_desc,
     # ---- 5. normal + scale-band refresh over all observing keyframes ---
     memb = ms.observation_mask(m).to(torch.float32)             # (K, M)
     C_all = -torch.einsum("kji,kj->ki", m.kf_pose.R, m.kf_pose.t)
-    x2 = torch.sum(m.mp_pos ** 2, dim=-1)[None, :]
-    c2 = torch.sum(C_all ** 2, dim=-1)[:, None]
+    x2 = sum_sq_f32(m.mp_pos)[None, :]
+    c2 = sum_sq_f32(C_all)[:, None]
     xc = C_all @ m.mp_pos.T
     d_km = torch.sqrt(torch.clamp(x2 + c2 - 2.0 * xc, min=1e-12))
     w_km = memb / d_km

@@ -93,7 +93,7 @@ def fused_track_step(mp_pos, mp_desc, mp_valid, prev_pose: lie.SE3,
         midx, mok = matcher.search_by_projection(
             uv, mp_desc, vis, zeros_oct, kp_uv, kp_desc, kp_valid,
             kp_octave, radius=radius, max_dist=matcher.TH_HIGH,
-            octave_window=16)
+            octave_window=16, fused=True)
         mp_of_kp = _invert(midx, mok, F)
         return mp_of_kp, torch.clamp(mp_of_kp, 0, M - 1).long()
 
@@ -167,10 +167,12 @@ def fused_frame_update(mp_pos, mp_desc, mp_valid, mp_visible, mp_found,
         else:
             r_pt = torch.full((M,), radius, dtype=torch.float32,
                               device=mp_pos.device)
+        # the window rounds as XLA:CPU compiles the reference's dense
+        # sum((uv - kp)**2) <= r**2: fma(dv, dv, du*du) (ROADMAP C11)
         idx, best, second = masked_match(
             uv_pred, mp_desc, vis, r_pt, kp_uv, kp_desc, kp_valid,
             mp_octave=pred_oct if scale_gates else None,
-            kp_octave=kp_octave if scale_gates else None)
+            kp_octave=kp_octave if scale_gates else None, fused_window=True)
         ok = ((best <= matcher.TH_HIGH)
               & (best.to(torch.float32)
                  <= matcher.RATIO * second.to(torch.float32)))

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.fused import within_fused
 from .matcher import BIG, hamming_distance_rows, masked_min2
 
 launches = 0
@@ -61,24 +62,6 @@ def _fold(pred_uv, mp_valid, radius, kp_uv, kp_valid, mp_octave,
     return uvr, kp_uvo
 
 
-def sq_add_f32(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """float32 ``x * x + acc`` rounded once, as a fused multiply-add: the
-    exact square (float64 holds it) plus ``acc``, TwoSum for the error of
-    the float64 sum, which decides the one case float64 cannot, a sum
-    exactly halfway between two float32 values."""
-    a = x.double() * x.double()
-    b = acc.double()
-    s = a + b
-    bb = s - a
-    e = (a - (s - bb)) + (b - bb)
-    r = s.float()
-    up = torch.nextafter(r, torch.full_like(r, float("inf")))
-    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
-    r = torch.where(((r.double() + up.double()) * 0.5 == s) & (e > 0), up, r)
-    return torch.where(((r.double() + dn.double()) * 0.5 == s) & (e < 0), dn,
-                       r)
-
-
 def window_mask(uvr: torch.Tensor, kp_uvo: torch.Tensor,
                 fused_window: bool = False) -> torch.Tensor:
     """(M, N) bool: the pairs the pixel window and the octave gate pass."""
@@ -86,16 +69,8 @@ def window_mask(uvr: torch.Tensor, kp_uvo: torch.Tensor,
     dv = uvr[:, 1:2] - kp_uvo[None, :, 1]
     r = uvr[:, 2:3]
     r2 = r * torch.abs(r)
-    d2 = du * du + dv * dv
-    ok = d2 <= r2
-    if fused_window:
-        # the two roundings differ by a few ulps: the pairs that close to
-        # the edge are decided by the fused value, the rest as they are
-        near = (d2 <= r2 * (1.0 + 1e-6) + 1e-30) & \
-            (d2 >= r2 * (1.0 - 1e-6) - 1e-30)
-        i, j = torch.nonzero(near, as_tuple=True)
-        ok = ok.index_put((i, j), sq_add_f32(dv[i, j], du[i, j] * du[i, j])
-                          <= r2[i, 0])
+    ok = (within_fused(du, dv, r2) if fused_window
+          else du * du + dv * dv <= r2)
     mp_oct = uvr[:, 3:4]
     return ok & ((torch.abs(mp_oct - kp_uvo[None, :, 2]) <= 1.5)
                  | (mp_oct < 0.0))

@@ -16,6 +16,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.fused import within_fused
+
 TH_LOW = 50
 TH_HIGH = 100
 RATIO = 0.9
@@ -103,14 +105,18 @@ def match_masked(desc1: torch.Tensor, desc2: torch.Tensor,
 def search_by_projection(pred_uv, mp_desc, mp_valid, mp_octave, kp_uv,
                          kp_desc, kp_valid, kp_octave, radius,
                          max_dist: int = TH_HIGH, ratio: float = RATIO,
-                         octave_window: int = 1):
+                         octave_window: int = 1, fused: bool = False):
     """Projection-window search as a masked dense match.
-    Returns (match_idx (N,), ok (N,))."""
+    Returns (match_idx (N,), ok (N,)). ``fused`` rounds the window as the
+    reference's jitted callers do (``fma(dv, dv, du*du)``, ROADMAP C11);
+    without it, as its eager callers do (each square and the sum)."""
     r = torch.as_tensor(radius, dtype=torch.float32, device=pred_uv.device)
     if r.ndim == 0:
         r = r.expand(pred_uv.shape[0])
-    d2 = torch.sum((pred_uv[:, None, :] - kp_uv[None, :, :]) ** 2, dim=-1)
-    within = d2 <= (r[:, None] ** 2)
+    diff = pred_uv[:, None, :] - kp_uv[None, :, :]
+    r2 = r[:, None] ** 2
+    within = (within_fused(diff[..., 0], diff[..., 1], r2) if fused
+              else torch.sum(diff ** 2, dim=-1) <= r2)
     oct_ok = torch.abs(mp_octave[:, None] - kp_octave[None, :]) \
         <= octave_window
     mask = within & oct_ok & mp_valid[:, None] & kp_valid[None, :]

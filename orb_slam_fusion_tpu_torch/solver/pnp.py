@@ -22,6 +22,7 @@ import torch
 
 from .. import cameras, lie
 from ..utils import prng
+from ..utils.fused import sum_sq_f32
 from .pose_opt import pose_optimization
 
 
@@ -159,7 +160,7 @@ def pnp_ransac(X: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     R, t = _dlt_pose(X[idx], rays[idx])
     pc = torch.einsum("hij,nj->hni", R, X) + t[:, None, :]
     pred = cameras.project(cam_model, cam_params, pc)
-    err2 = torch.sum((pred - uv[None]) ** 2, dim=-1)
+    err2 = sum_sq_f32(pred - uv[None])
     inl = (valid[None, :] & (pc[..., 2] > 0.05)
            & (err2 * inv_sigma2[None, :] < max_err_px ** 2))
     scores = torch.sum(inl.to(torch.int32), dim=1)

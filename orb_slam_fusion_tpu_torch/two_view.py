@@ -23,6 +23,7 @@ import torch
 
 from . import cameras
 from .utils import prng
+from .utils.fused import sum_sq_f32
 
 
 class TwoViewResult(NamedTuple):
@@ -95,10 +96,10 @@ def _check_rt(R, t, r1, r2, mask, min_parallax_cos: float = 0.99995):
         torch.linalg.norm(c1, dim=-1) * torch.linalg.norm(c2, dim=-1),
         min=1e-12)
     good = mask & (z1 > 0) & (z2 > 0) & (cosp < min_parallax_cos)
-    e1 = torch.sum((X[..., :2] / torch.clamp(z1[..., None], min=1e-9)
-                    - r1[..., :2]) ** 2, dim=-1)
-    e2 = torch.sum((X2[..., :2] / torch.clamp(z2[..., None], min=1e-9)
-                    - r2[..., :2]) ** 2, dim=-1)
+    e1 = sum_sq_f32(X[..., :2] / torch.clamp(z1[..., None], min=1e-9)
+                    - r1[..., :2])
+    e2 = sum_sq_f32(X2[..., :2] / torch.clamp(z2[..., None], min=1e-9)
+                    - r2[..., :2])
     th = (4.0 / 460.0) ** 2
     good = good & (e1 < th) & (e2 < th)
     n_good = torch.sum(good.to(torch.int32))
@@ -173,7 +174,7 @@ def _h_transfer_error(Hm: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor
         w = p[..., 2:3]
         p = p[..., :2] / torch.where(torch.abs(w) < 1e-12,
                                      torch.full_like(w, 1e-12), w)
-        return torch.sum((p - b[None, :, :2]) ** 2, dim=-1)
+        return sum_sq_f32(p - b[None, :, :2])
 
     return xfer(Hm, r1, r2) + xfer(torch.linalg.inv(Hm), r2, r1)
 

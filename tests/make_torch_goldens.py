@@ -117,9 +117,11 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-if any(a.startswith("mesh_") for a in sys.argv[1:]):
-    # the mesh goldens run on 8 virtual CPU devices (tests/conftest.py);
-    # the others keep the single device they were written with
+if any(a.startswith(("mesh_", "pyramid_")) for a in sys.argv[1:]):
+    # the mesh goldens and the pyramid sweep run on 8 virtual CPU devices
+    # (tests/conftest.py; the resize's bits follow XLA's thread pool, which
+    # that sizes to 8); the others keep the single device they were
+    # written with
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_"
                                "force_host_platform_device_count=8").strip()
 
@@ -1363,6 +1365,54 @@ def mesh_gba():
           flush=True)
 
 
+PYRAMID_SWEEP_FILE = "pyramid_sweep.json"
+
+
+def pyramid_sweep_cases():
+    """The seeded sweep of image shapes (both orientations, sides 64-800)
+    and non-default pyramids that tests/test_torch_frontend.py holds the
+    port's resize to: (h, w, levels, scale)."""
+    rng = np.random.RandomState(2026)
+    cases = [(int(h), int(w), 8, 1.2) for h, w in rng.randint(64, 801,
+                                                              (48, 2))]
+    return cases + [(480, 752, 12, 1.1), (480, 752, 4, 2.0),
+                    (376, 1241, 6, 1.5), (640, 480, 10, 1.15),
+                    (300, 500, 8, 1.3)]
+
+
+def pyramid_sweep_image(h, w):
+    return (np.random.RandomState(h * 7 + w).rand(h, w) * 255).astype(
+        np.float32)
+
+
+def pyramid_sweep():
+    """Per-level digests of the reference's pyramids (one jit each) for
+    ``pyramid_sweep_cases``, in the tests' regime."""
+    from orb_slam_fusion_tpu.frontend import pyramid as jpyr
+    build = jax.jit(jpyr.build_pyramid, static_argnums=(1, 2))
+    out = {"regime": {"xla_force_host_platform_device_count": 8,
+                      "xla_intra_op_threads": 8,
+                      "jax": jax.__version__}, "cases": []}
+    for h, w, levels, scale in pyramid_sweep_cases():
+        lv = build(jnp.asarray(pyramid_sweep_image(h, w)), levels, scale)
+        out["cases"].append({"h": h, "w": w, "levels": levels,
+                             "scale": scale,
+                             "digests": [sha(np.asarray(v)) for v in lv]})
+    # chip_smoke.py's extraction phase: its textured images at sizes
+    # outside the earlier verified list, the card's pyramid held to these
+    from orb_slam_fusion_tpu_torch import synth
+    out["chip"] = []
+    for label, seed, h, w in chip_smoke.PYRAMID_IMAGES:
+        img = synth.textured_image(np.random.RandomState(seed), h, w)
+        lv = build(jnp.asarray(img), chip_smoke.N_LEVELS, 1.2)
+        out["chip"].append({"label": label, "seed": seed, "h": h, "w": w,
+                            "digests": [sha(np.asarray(v)) for v in lv]})
+    with open(os.path.join(OUT, PYRAMID_SWEEP_FILE), "w") as fh:
+        json.dump(out, fh, indent=1)
+    print("wrote", PYRAMID_SWEEP_FILE, len(out["cases"]), "cases",
+          flush=True)
+
+
 MESH_SESSIONS = {
     "mesh_session_480x752.json": lambda: mesh_session(
         chip_smoke.MESH_SESSION_CONFIG),
@@ -1391,6 +1441,7 @@ SESSIONS = {"mono_session_480x752.json": mono_session,
             LOOP_STEPS_FILE: loop_closer_steps,
             MESH_DRYRUN_FILE: mesh_dryrun,
             MESH_GBA_FILE: mesh_gba,
+            PYRAMID_SWEEP_FILE: pyramid_sweep,
             **LOOP_SESSIONS, **MESH_SESSIONS}
 
 
@@ -1400,7 +1451,7 @@ def main():
     for name, fn in ((n, SESSIONS[n]) for n in names):
         t0 = time.perf_counter()
         if name in (chip_smoke.LOOP_MAP_FILE, LOOP_STEPS_FILE,
-                    MESH_DRYRUN_FILE, MESH_GBA_FILE):
+                    MESH_DRYRUN_FILE, MESH_GBA_FILE, PYRAMID_SWEEP_FILE):
             fn()
             continue
         g = fn()

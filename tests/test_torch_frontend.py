@@ -11,9 +11,15 @@ seed. What is bit-exact and what is not:
   octave: keypoints, octaves, responses, angles, descriptors. The angle's
   moments are summed in the reference's compiled order and its arctangent
   is glibc's ``atan2f`` rebuilt in float32 steps (ROADMAP.md, C4).
-* Portrait images raise in the resize instead of returning other bits
-  (ROADMAP.md, C3).
+* The resize reproduces the reference's dot schedule at every image size
+  (XLA:CPU's Eigen contraction on the tests' 8-thread pool, ROADMAP.md
+  C3), portrait sizes included; the classes it cannot reproduce yet raise
+  instead of returning other bits.
 """
+
+import hashlib
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -164,10 +170,10 @@ def test_atan2f_is_the_references():
 @pytest.mark.parametrize("size", tpyr.VERIFIED_SIZES,
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_pyramid_bit_exact_at_size(size):
-    """8-level pyramids of every size the resize accepts (the repo's
-    sequences, the image session's 240x376 included, and the common
-    datasets' sizes) are bit-exact against the reference's, built inside
-    one jit."""
+    """8-level pyramids of the repo's sequences, the image session's
+    240x376 and the common datasets' sizes, landscape, square and portrait
+    (tests/torch_pyramid_probe.py's list), are bit-exact against the
+    reference's, built inside one jit."""
     h, w = size
     img = (np.random.default_rng(h * 7 + w).random((h, w)) * 255).astype(
         np.float32)
@@ -178,25 +184,79 @@ def test_pyramid_bit_exact_at_size(size):
                                       err_msg=f"level {lvl}")
 
 
-def test_portrait_resize_raises():
-    """A 752x480 portrait image: the reference contracts width first in an
-    order the port does not reproduce yet, so the resize raises instead of
-    returning other bits (ROADMAP.md, C3)."""
-    img = torch.zeros((752, 480))
-    with pytest.raises(NotImplementedError, match="C3"):
-        tpyr.build_pyramid(img, 8, 1.2)
+_SWEEP = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "torch_goldens", "pyramid_sweep.json")
 
 
-@pytest.mark.parametrize("size", [(240, 320), (480, 480), (256, 256)],
-                         ids=lambda s: f"{s[0]}x{s[1]}")
-def test_unverified_resize_raises(size):
-    """Landscape and square sizes whose deeper levels differ from the
-    reference's (240x320 and 256x256 from level 4, 480x480 from level 6;
-    tests/torch_pyramid_probe.py) are not verified sizes, so the resize
-    raises instead of returning other bits (ROADMAP.md, C3)."""
-    assert size not in tpyr.VERIFIED_SIZES
+def _sha(a) -> str:
+    h = hashlib.sha256()
+    a = np.ascontiguousarray(a)
+    h.update(str(a.dtype).encode() + str(a.shape).encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _sweep_cases():
+    with open(_SWEEP) as fh:
+        return json.load(fh)["cases"]
+
+
+@pytest.mark.parametrize("case", _sweep_cases(),
+                         ids=lambda c: f"{c['h']}x{c['w']}-{c['levels']}"
+                                       f"-{c['scale']}")
+def test_pyramid_sweep_matches_reference(case):
+    """A seeded sweep of shapes of both orientations (sides 64-800) and
+    five pyramids at other nLevels/scaleFactor: each level the port builds
+    from its own previous one equals the reference's, by the per-level
+    digests tests/make_torch_goldens.py wrote in the tests' regime (8 host
+    devices), until the resize refuses a step by one of its named classes
+    (``pyramid._refused``, ROADMAP C3); no level returns other bits."""
+    h, w, levels, scale = case["h"], case["w"], case["levels"], case["scale"]
+    img = (np.random.RandomState(h * 7 + w).rand(h, w) * 255).astype(
+        np.float32)
+    assert _sha(img) == case["digests"][0]
+    lv = torch.from_numpy(img)
+    for lvl, s in enumerate(tpyr.level_shapes(h, w, levels, scale)[1:], 1):
+        why = tpyr._refused(*lv.shape, *s)
+        if why:
+            with pytest.raises(NotImplementedError, match="C3"):
+                tpyr.resize_bilinear(lv, s)
+            return
+        lv = tpyr.resize_bilinear(lv, s)
+        assert _sha(lv.numpy()) == case["digests"][lvl], f"level {lvl}"
+
+
+def test_sweep_is_mostly_admitted():
+    """Most of the sweep's pyramids are reproduced whole: the refused
+    classes (skinny shapes' deep levels) stay a minority."""
+    whole = sum(not any(tpyr._refused(*a, *b) for a, b in zip(
+        tpyr.level_shapes(c["h"], c["w"], c["levels"], c["scale"])[:-1],
+        tpyr.level_shapes(c["h"], c["w"], c["levels"], c["scale"])[1:]))
+        for c in _sweep_cases())
+    assert whole >= 40, whole
+
+
+@pytest.mark.parametrize("src,dst", [((28, 400), (23, 333)),
+                                     ((44, 409), (37, 340))],
+                         ids=["side-under-32", "thin-width-pass"])
+def test_refused_resize_classes_raise(src, dst):
+    """The two classes whose order is not reproduced (an axis resized from
+    fewer than 32 pixels; the width pass of a height-first step with fewer
+    than 51 rows and a weight panel over 128 KiB, which XLA's own dot blocks
+    by another rule) raise instead of returning other bits (ROADMAP C3)."""
     with pytest.raises(NotImplementedError, match="C3"):
-        tpyr.build_pyramid(torch.zeros(size), 8, 1.2)
+        tpyr.resize_bilinear(torch.zeros(src), dst)
+
+
+def test_dot_plan_follows_thread_count():
+    """The plan takes the reference's pool size: the height pass of
+    240x320's level 4 is cut at k = 96 on 4 or more threads (Eigen shards
+    the contracted axis), in one block on 1-3; the tests' regime is 8."""
+    assert tpyr.REFERENCE_THREADS == 8
+    assert tpyr._dot_plan("e", 139, 116, 185, 8)[1] == (0, 96)
+    assert tpyr._dot_plan("e", 139, 116, 185, 4)[1] == (0, 96)
+    for t in (1, 2, 3):
+        assert tpyr._dot_plan("e", 139, 116, 185, t)[1] == (0,)
 
 
 def test_fast_detect_and_nms():

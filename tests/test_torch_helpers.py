@@ -445,3 +445,37 @@ def with_threads(n, fn):
         return fn()
     finally:
         torch.set_num_threads(before)
+
+
+def window_edge_scene(fused_inside, n=32, r=15.0, seed=0):
+    """Map points at z = 1 under the identity pose and a unit pinhole, so
+    they project to their own (x, y) exactly, each with one keypoint at an
+    exact offset (du, dv) whose squared distance, rounded as XLA:CPU fuses
+    it (``fma(dv, dv, du*du)``) and rounded term by term, falls on either
+    side of ``r*r``: inside by the fused rounding only (``fused_inside``)
+    or by the term-by-term one only. The keypoint carries its map point's
+    descriptor; the points sit 40 px apart, one keypoint per window.
+    Returns (mp_pos (n, 3), desc (n, 8) uint32, kp_uv (n, 2))."""
+    f32 = np.float32
+    rng = np.random.RandomState(seed)
+    r2 = f32(r) * f32(r)
+    q = 2.0 ** 14       # offsets on a 2^-14 grid: uv - kp exact below 1024
+    du = (np.round(rng.uniform(0.3, 0.95, 400000) * r * q) / q).astype(f32)
+    dv0 = np.sqrt(np.float64(r2) - du.astype(np.float64) ** 2)
+    dv = (np.round(dv0[:, None] * q + np.arange(-8, 9)[None]) / q).astype(
+        f32)
+    du2 = (du * du)[:, None]
+    sep = (du2 + dv * dv).astype(f32)
+    fused = (dv.astype(np.float64) ** 2 + du2.astype(np.float64)).astype(f32)
+    hit = ((fused <= r2) & (r2 < sep)) if fused_inside else \
+        ((sep <= r2) & (r2 < fused))
+    rows = np.nonzero(hit.any(1))[0][:n]
+    assert len(rows) == n
+    d = np.stack([du[rows], dv[rows, hit[rows].argmax(1)]], 1)
+    gx, gy = np.meshgrid(np.arange(16), np.arange(n // 16 + 1))
+    uv = np.stack([100 + 40 * gx.ravel()[:n], 100 + 40 * gy.ravel()[:n]],
+                  1).astype(f32)
+    kp = (uv - d).astype(f32)
+    assert ((uv - kp) == d).all()
+    desc = rng.randint(0, 2 ** 32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    return np.concatenate([uv, np.ones((n, 1), f32)], 1), desc, kp

@@ -23,6 +23,7 @@ from orb_slam_fusion_tpu_torch.frontend import masked_match as tmm
 from orb_slam_fusion_tpu_torch.frontend import matcher as tm
 from orb_slam_fusion_tpu_torch.map.convert import desc_to_torch
 
+import test_torch_helpers as h
 import torch_match_cases as cases
 
 torch.set_num_threads(1)
@@ -200,3 +201,62 @@ def test_wrapper_rejects_bad_inputs():
         uvr, kp_uvo = tmm._fold(args[0], args[2], args[3], args[4], args[6],
                                 None, None)
         tmm.masked_match_cuda(uvr, args[1], kp_uvo, args[5], False)
+
+
+@pytest.mark.parametrize("fused_inside", [True, False],
+                         ids=["inside-fused", "inside-term-by-term"])
+def test_search_by_projection_window_edge(fused_inside):
+    """The dense projection search at the window's edge (ROADMAP C11):
+    with ``fused`` it rounds as the reference's search does inside a jitted
+    program (the tracking step's and mapping's callers), without it as the
+    reference's eager callers (loop closing) do."""
+    import jax
+    mp_pos, desc, kp = h.window_edge_scene(fused_inside)
+    uv, n = mp_pos[:, :2].copy(), len(mp_pos)
+    octave = np.zeros(n, np.int32)
+    args = (uv, desc, np.ones(n, bool), octave, kp, desc, np.ones(n, bool),
+            octave)
+    jargs = [jnp.asarray(a) for a in args] + [15.0]
+    targs = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                              else a) for a in args] + [15.0]
+    _, ok_jit = jax.jit(jm.search_by_projection)(*jargs)
+    _, ok_eager = jm.search_by_projection(*jargs)
+    _, ok_fused = tm.search_by_projection(*targs, fused=True)
+    _, ok_plain = tm.search_by_projection(*targs)
+    assert int(np.asarray(ok_jit).sum()) == (n if fused_inside else 0)
+    assert int(np.asarray(ok_eager).sum()) == (0 if fused_inside else n)
+    np.testing.assert_array_equal(np.asarray(ok_jit), ok_fused.numpy())
+    np.testing.assert_array_equal(np.asarray(ok_eager), ok_plain.numpy())
+
+
+@pytest.mark.parametrize("form", ["diff", "ratio", "three"])
+def test_sum_sq_f32_is_xlas_fused_sum(form):
+    """``utils.fused.sum_sq_f32`` against the reference's sums of squares
+    compiled by XLA:CPU, in the forms the port's gates use (C11): the PnP
+    and projection residual ``sum((a - b)**2)``, the two-view and mapping
+    parallax-check residual ``sum((X/z - r)**2)`` and the mapping normals'
+    ``sum(x**2)`` over 3; every value bit-exact."""
+    import jax
+    from orb_slam_fusion_tpu_torch.utils.fused import sum_sq_f32
+    rng = np.random.RandomState(3)
+    x = [rng.randn(1 << 15).astype(np.float32) * 3 for _ in range(5)]
+    j = [jnp.asarray(a) for a in x]
+    t = [torch.from_numpy(a) for a in x]
+    if form == "diff":
+        want = jax.jit(lambda a, b, c, d: jnp.sum(
+            (jnp.stack([a, b], -1) - jnp.stack([c, d], -1)) ** 2, -1))(*j[:4])
+        got = sum_sq_f32(torch.stack(t[:2], -1) - torch.stack(t[2:4], -1))
+    elif form == "ratio":
+        want = jax.jit(lambda a, b, z, c, d: jnp.sum(
+            (jnp.stack([a, b], -1) / jnp.maximum(jnp.abs(z)[..., None] + 1,
+                                                 1e-9)
+             - jnp.stack([c, d], -1)) ** 2, -1))(*j)
+        got = sum_sq_f32(torch.stack(t[:2], -1) / torch.clamp(
+            torch.abs(t[2])[..., None] + 1, min=1e-9)
+            - torch.stack(t[3:5], -1))
+    else:
+        want = jax.jit(lambda a, b, c: jnp.sum(
+            jnp.stack([a, b, c], -1) ** 2, -1))(*j[:3])
+        got = sum_sq_f32(torch.stack(t[:3], -1))
+    np.testing.assert_array_equal(np.asarray(want).view(np.int32),
+                                  got.numpy().view(np.int32))

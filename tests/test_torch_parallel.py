@@ -40,6 +40,7 @@ from orb_slam_fusion_tpu_torch.parallel import (
     SlamMesh, distributed_bundle_adjustment, distributed_frame_update,
     distributed_pose_graph, make_slam_mesh, pad_map_for_mesh)
 from orb_slam_fusion_tpu_torch.solver import ba as tba
+from orb_slam_fusion_tpu_torch.utils import fused
 from orb_slam_fusion_tpu_torch.solver.pose_graph import (
     PoseGraphProblem as TPGP, optimize_pose_graph)
 
@@ -408,7 +409,7 @@ def test_sq_add_rounds_once():
     acc = np.concatenate([rng.randn(4000) * 1e4,
                           rng.randint(0, 2 ** 24, 2000) * 2.0,
                           rng.randn(2000)]).astype(np.float32)
-    got = tmm.sq_add_f32(_t(x), _t(acc)).numpy()
+    got = fused.sq_add_f32(_t(x), _t(acc)).numpy()
     from fractions import Fraction
     for i in range(0, len(x), 7):
         exact = Fraction(float(x[i])) ** 2 + Fraction(float(acc[i]))

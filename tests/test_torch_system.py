@@ -18,8 +18,8 @@ it gives a value:
   drawing (the JAX package's PNG bytes for the same map), the state
   accessors, the timing and debug dumps;
 * ``_rectify`` bit-exact, ``_preprocess``'s colour conversion bit-exact on
-  random RGB and BGR images, its 480x752 -> 240x376 resize bit-exact, and
-  its refusal of an unverified resize (ROADMAP C3);
+  random RGB and BGR images, and its 480x752 frame resizes to six
+  Camera.newWidth/newHeight sizes bit-exact (ROADMAP C3);
 * autosave and autoload, across the packages both ways, and a
   relocalization into the JAX session's restored map;
 * ``track_stereo`` on a Kannala-Brandt rig raises ``TypeError`` in both
@@ -45,6 +45,7 @@ from orb_slam_fusion_tpu.system import System as JSystem
 from orb_slam_fusion_tpu_torch import sim as tsim
 from orb_slam_fusion_tpu_torch.config import load_settings as tload
 from orb_slam_fusion_tpu_torch.engine.tracker import TrackState
+from orb_slam_fusion_tpu_torch.frontend import pyramid as tpyr
 from orb_slam_fusion_tpu_torch.io import load_map
 from orb_slam_fusion_tpu_torch.system import Sensor, System
 from orb_slam_fusion_tpu_torch.viz import export_interactive
@@ -290,11 +291,14 @@ def test_preprocess_colour_bit_exact(tmp_path, rgb):
                                       got.view(np.int32))
 
 
-def test_preprocess_resize_bit_exact(tmp_path):
-    """The 480x752 -> 240x376 resize of a settings file's
+@pytest.mark.parametrize("size", [dst for _, dst in tpyr.RESIZE_STEPS],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_preprocess_resize_bit_exact(tmp_path, size):
+    """The 480x752 frame resized to a settings file's
     Camera.newWidth/newHeight: the reference's bits (ROADMAP C3)."""
     p = _settings_file(tmp_path, "r.yaml", EUROC_YAML
-                       + "Camera.newWidth: 376\nCamera.newHeight: 240\n")
+                       + f"Camera.newWidth: {size[1]}\n"
+                       f"Camera.newHeight: {size[0]}\n")
     js = JSystem(settings=jload(p, "mono"), sensor=JSensor.MONOCULAR,
                  verbosity=0)
     ts = System(settings=tload(p, "mono", device="cpu"),
@@ -306,18 +310,9 @@ def test_preprocess_resize_bit_exact(tmp_path):
                                              248.375), (480, 752))):
         want = np.asarray(js._preprocess(jnp.asarray(img)))
         got = ts._preprocess(img).numpy()
-        assert got.shape == (240, 376)
+        assert got.shape == size
         np.testing.assert_array_equal(want.view(np.int32),
                                       got.view(np.int32))
-
-
-def test_preprocess_unverified_resize_refused(tmp_path):
-    p = _settings_file(tmp_path, "u.yaml", EUROC_YAML
-                       + "Camera.newWidth: 320\nCamera.newHeight: 200\n")
-    ts = System(settings=tload(p, "mono", device="cpu"),
-                sensor=Sensor.MONOCULAR, verbosity=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="C3"):
-        ts._preprocess(np.zeros((480, 752), np.float32))
 
 
 def test_state_accessors(tmp_path):

@@ -143,3 +143,34 @@ def test_fused_track_step_matches_reference():
     np.testing.assert_array_equal(np.asarray(rj.matched_feat),
                                   rt.matched_feat.numpy())
     assert int(rj.n_inliers) == int(rt.n_inliers) > 50
+
+
+@pytest.mark.parametrize("fused_inside", [True, False],
+                         ids=["inside-fused", "inside-term-by-term"])
+def test_window_edge_rounds_as_reference(fused_inside):
+    """Map points whose only keypoint sits where the squared distance's two
+    roundings straddle the window's edge r*r (ROADMAP C11): the reference's
+    jitted step tests ``fma(dv, dv, du*du) <= r*r``, so its coarse stage
+    matches exactly the points inside by that rounding, and the port's
+    step (fused-window mode) matches the same ones."""
+    mp_pos, desc, kp = h.window_edge_scene(fused_inside)
+    n = len(mp_pos)
+    cam = np.array([1.0, 1.0, 0.0, 0.0], np.float32)
+    eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+    octave = np.zeros(n, np.int32)
+    kw = dict(img_h=2000, img_w=2000, radius_coarse=15.0, min_matches=0)
+    uj = jstep.fused_frame_update(
+        jnp.asarray(mp_pos), jnp.asarray(desc), jnp.ones(n, bool),
+        jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
+        h.jse3(eye, zero), h.jse3(eye, zero), jnp.asarray(kp),
+        jnp.asarray(desc), jnp.ones(n, bool), jnp.asarray(octave),
+        jinv(JP()), jnp.asarray(cam), use_pallas=False, **kw)
+    t = torch.from_numpy
+    ut = tstep.fused_frame_update(
+        t(mp_pos), t(desc.view(np.int32)), torch.ones(n, dtype=torch.bool),
+        torch.zeros(n, dtype=torch.int32), torch.zeros(n, dtype=torch.int32),
+        h.tse3(eye, zero), h.tse3(eye, zero), t(kp), t(desc.view(np.int32)),
+        torch.ones(n, dtype=torch.bool), t(octave), tinv(TP(), "cpu"),
+        t(cam), **kw)
+    assert int(np.asarray(uj.counts)[0]) == (n if fused_inside else 0)
+    assert int(ut.counts[0]) == int(np.asarray(uj.counts)[0])

@@ -2,44 +2,46 @@
 """Which image sizes get the reference's pyramid bits from the port.
 
     JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py [HxW ...]
+    JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py --cpus 1 [HxW ...]
     JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py --step HxW:hxw
+    JAX_PLATFORMS=cpu python tests/torch_pyramid_probe.py --levels 12 \
+        --scale 1.1 HxW
 
-With ``--step``, probes one resize outside the pyramids instead: the
-System's frame resize to a settings file's Camera.newHeight/newWidth
-(``jax.image.resize(img, (h, w), "linear")``, run eagerly as
-``System._preprocess`` runs it) against the port's height-first resize,
-on six seeded images (uniform random, three of them rounded to integers)
-and a rendered 480x752 frame; a step joins ``pyramid.RESIZE_STEPS`` only
-when every image shows 0 differing pixels.
+The reference's resize is two dots (``jax.image.resize``), and the order in
+which XLA:CPU sums each output pixel's taps depends on the shape and on the
+size of XLA's intra-op thread pool: the height pass (and both passes of a
+portrait resize, whose operands are both transposed) is an Eigen
+contraction that cuts the contracted axis into blocks by a cost model of
+the shape and the thread count. XLA sizes that pool to the larger of the
+host devices and the CPUs the process may run on, so the reference's bits
+follow ``--xla_force_host_platform_device_count`` and ``taskset``. The port
+reproduces the regime the reference runs in under tests/conftest.py and
+the goldens (8 host devices: ``pyramid.REFERENCE_THREADS``); its resize
+takes the thread count as an argument internally (``pyramid._resize``), so
+other regimes can be checked.
 
-For each size, builds the 8-level pyramid of a seeded uniform-random image
-with the reference (``jax.image.resize`` inside one jit, on the CPU) and
-with the port, and prints per level the number of pixels that differ
-(ROADMAP C3), bypassing the resize's refusal of sizes outside
-``pyramid.VERIFIED_SIZES``: a size belongs in that list only when every
-level is 0 here. Landscape sizes run the port's height-first order;
-portrait sizes the width-first order the reference contracts them in
-(both passes as the weights-on-the-left dot the port uses for the height
-pass), to show how far that order gets.
+By default the reference runs in that regime (8 host devices). With
+``--cpus N`` it runs in a child process pinned to N CPUs
+(``os.sched_setaffinity``) without the device-count flag, and the port
+with N threads: the rule reproduces the reference on 1, 2, 3, 8 CPUs.
+
+For each size, builds the pyramid of a seeded uniform-random image with
+the reference (``jax.image.resize`` inside one jit) and with the port, each
+level from the reference's previous level, and prints per level the number
+of pixels that differ, or ``R`` where the port refuses the step (a class
+named in ``pyramid._refused``; ROADMAP C3). With ``--step``, probes a resize
+outside the pyramids instead (the System's frame resize to a settings
+file's Camera.newHeight/newWidth, ``jax.image.resize(img, (h, w),
+"linear")`` run eagerly) on six seeded images.
 """
 
 import argparse
 import os
+import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-
-import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
-
-from orb_slam_fusion_tpu.frontend import pyramid as jpyr  # noqa: E402
-from orb_slam_fusion_tpu_torch.frontend import pyramid as tpyr  # noqa: E402
 
 SIZES = ["752x480", "640x480", "300x120", "200x100", "1241x376", "848x800",
          "480x480", "256x256", "240x320", "120x300", "200x300", "300x400",
@@ -49,38 +51,31 @@ SIZES = ["752x480", "640x480", "300x120", "200x100", "1241x376", "848x800",
          "768x1024", "1080x1920"]
 
 
-def width_first(img, shape):
-    """Portrait order: width pass, then height pass, both on the
-    weights-on-the-left plan (``_resize_pass`` kind "h")."""
-    out = img
-    if shape[1] != img.shape[1]:
-        out = tpyr._resize_pass(out, shape[1], "h")
-    if shape[0] != img.shape[0]:
-        out = tpyr._resize_pass(out.T, shape[0], "h").T
-    return out.contiguous()
+def _child(argv, cpus):
+    """Rerun this script pinned to ``cpus`` CPUs, without the device-count
+    flag, and return its exit code."""
+    env = dict(os.environ, XLA_FLAGS="", JAX_PLATFORMS="cpu",
+               PYRAMID_PROBE_CHILD=str(cpus))
+    return subprocess.call([sys.executable, os.path.abspath(__file__)]
+                           + argv, env=env)
 
 
-def probe_step(step):
-    src, dst = ([int(v) for v in part.split("x")] for part in step.split(":"))
-    imgs = []
-    for seed in range(6):
-        img = (np.random.RandomState(seed).rand(*src) * 255).astype(
-            np.float32)
-        imgs.append(np.round(img) if seed >= 3 else img)
-    if tuple(src) == (480, 752):
-        from orb_slam_fusion_tpu_torch import sim
-        world = sim.make_corridor_world(n_frames=3, n_points=2000, seed=1)
-        imgs.append(sim.render_image(world, 1, (458.654, 457.296, 367.215,
-                                                248.375), (480, 752)))
-    bad = []
-    for img in imgs:
-        ref = np.asarray(jax.image.resize(jnp.asarray(img), tuple(dst),
-                                          "linear"))
-        got = tpyr._resize_height_first(torch.from_numpy(img), tuple(dst))
-        bad.append(int((ref != got.numpy()).sum()))
-    listed = (tuple(src), tuple(dst)) in tpyr.RESIZE_STEPS
-    print(f"{step}: differing px per image {bad}"
-          + (" (in RESIZE_STEPS)" if listed else ""), flush=True)
+def _level_diffs(jax, jnp, np, torch, jpyr, tpyr, h, w, levels, scale,
+                 threads):
+    img = (np.random.RandomState(h * 7 + w).rand(h, w) * 255).astype(
+        np.float32)
+    build = jax.jit(jpyr.build_pyramid, static_argnums=(1, 2))
+    ref = [np.asarray(v) for v in build(jnp.asarray(img), levels, scale)]
+    out = []
+    for lvl, s in enumerate(tpyr.level_shapes(h, w, levels, scale)[1:], 1):
+        try:
+            got = tpyr._resize(torch.from_numpy(ref[lvl - 1].copy()), s,
+                               threads)
+        except NotImplementedError:
+            out.append("R")
+            continue
+        out.append(int((ref[lvl] != got.numpy()).sum()))
+    return out
 
 
 def main():
@@ -88,25 +83,58 @@ def main():
     ap.add_argument("sizes", nargs="*", default=SIZES)
     ap.add_argument("--step", action="append", default=[],
                     help="a resize HxW:hxw outside the pyramids")
+    ap.add_argument("--cpus", type=int, default=0,
+                    help="run the reference on this many CPUs (no "
+                         "device-count flag) and the port with as many "
+                         "threads")
+    ap.add_argument("--levels", type=int, default=8)
+    ap.add_argument("--scale", type=float, default=1.2)
     a = ap.parse_args()
+    child = int(os.environ.get("PYRAMID_PROBE_CHILD", "0"))
+    if a.cpus and not child:
+        sys.exit(_child(sys.argv[1:], a.cpus))
+    if child:
+        os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:child])
+    else:
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + " --xla_force_host_platform_device_count=8").strip()
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu.frontend import pyramid as jpyr
+    from orb_slam_fusion_tpu_torch.frontend import pyramid as tpyr
+
+    torch.set_num_threads(1)
+    threads = child or tpyr.REFERENCE_THREADS
+    regime = (f"{child} CPUs, no device-count flag" if child else
+              "8 host devices (the tests' regime)")
+    print(f"reference on {regime}; port with {threads} threads", flush=True)
     if a.step:
         for step in a.step:
-            probe_step(step)
+            src, dst = ([int(v) for v in part.split("x")]
+                        for part in step.split(":"))
+            bad = []
+            for seed in range(6):
+                img = (np.random.RandomState(seed).rand(*src) * 255).astype(
+                    np.float32)
+                img = np.round(img) if seed >= 3 else img
+                ref = np.asarray(jax.image.resize(jnp.asarray(img),
+                                                  tuple(dst), "linear"))
+                got = tpyr._resize(torch.from_numpy(img), tuple(dst),
+                                   threads)
+                bad.append(int((ref != got.numpy()).sum()))
+            print(f"{step}: differing px per image {bad}", flush=True)
         return
-    build = jax.jit(jpyr.build_pyramid, static_argnums=(1, 2))
     for size in a.sizes:
         h, w = (int(v) for v in size.split("x"))
-        img = (np.random.RandomState(h * 7 + w).rand(h, w) * 255).astype(
-            np.float32)
-        ref = [np.asarray(v) for v in build(jnp.asarray(img), 8, 1.2)]
-        resize = width_first if h > w else tpyr._resize_height_first
-        lv = [torch.from_numpy(img)]
-        for s in tpyr.level_shapes(h, w, 8, 1.2)[1:]:
-            lv.append(resize(lv[-1], s))
-        how = ("width first (not shipped)" if h > w else "height first") + (
-            ", verified" if (h, w) in tpyr.VERIFIED_SIZES else "")
-        bad = [int((a != b.numpy()).sum()) for a, b in zip(ref, lv)]
-        print(f"{size}: differing px per level {bad} ({how})", flush=True)
+        bad = _level_diffs(jax, jnp, np, torch, jpyr, tpyr, h, w, a.levels,
+                           a.scale, threads)
+        print(f"{size}: differing px per level {bad}", flush=True)
 
 
 if __name__ == "__main__":
