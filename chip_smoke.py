@@ -934,11 +934,13 @@ def _image_config():
 
 
 # extraction images at a portrait size and at 240x320, whose deeper levels
-# the reference sums over Eigen's k shards: (label, seed, h, w); their
-# reference pyramids' digests are in tests/torch_goldens/pyramid_sweep.json
-# ("chip")
+# the reference sums over Eigen's k shards, and a skinny 92x706 whose deep
+# levels resize from under 32 rows and run thin width passes that YNNPACK
+# tiles: (label, seed, h, w); their reference pyramids' digests are in
+# tests/torch_goldens/pyramid_sweep.json ("chip")
 PYRAMID_IMAGES = (("portrait 752x480", 7, 752, 480),
-                  ("240x320", 8, 240, 320))
+                  ("240x320", 8, 240, 320),
+                  ("skinny 92x706", 9, 92, 706))
 
 
 def check_features(dev):

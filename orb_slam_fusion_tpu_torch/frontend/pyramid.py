@@ -7,22 +7,25 @@ one dot product per axis. ``F.interpolate`` computes other weights, so the
 port rebuilds the resize, rounded as the reference's CPU build (jax 0.9,
 XLA:CPU) rounds it, so that the levels come out bit for bit the same:
 
-* the weights (``resize_weights``) follow XLA's two loop fusions: columns
-  in the vectorised part round the sample position as an FMA and the tent
-  as multiply-then-subtract; columns XLA unrolls or leaves to the scalar
-  remainder round the other way round. The column totals are summed in
-  windows of 32 rows, as XLA's tree reduction does;
+* the weights (``resize_weights``) follow XLA's two loop fusions as LLVM
+  compiles them: vectorised loops round the sample position as an FMA and
+  the tent as multiply-then-subtract, loops LLVM unrolls and folds round
+  the other way round (``_tents``). The column totals are a reduce-window
+  of 32 rows beyond 32 rows, and up to 32 rows one loop that LLVM either
+  unrolls (rows in order) or vectorises (``_totals``);
 * the axes go in ``jax.image.resize``'s einsum order: the height first,
   unless contracting the width first is cheaper (portrait steps), and
   then both dots have both operands transposed;
 * each output pixel sums only its non-zero taps (``_taps``) in the order
   of the dot XLA's CPU runtime runs (``_dot_plan``). The width pass of a
-  height-first step is XLA's own dot: fused multiply-add chains in
-  k-blocks of 512, or 2 or 4 interleaved chains summed pairwise. Every
-  other pass is an Eigen tensor contraction on XLA's intra-op thread pool,
-  which cuts the contracted axis into blocks by a cost model of the shape
-  and of the pool's size (``_eigen_blocks``), and sums one row apart in
-  8 lanes when its last row block is one row wide (``_lone_taps``).
+  height-first step goes to YNNPACK, whose cost model picks a kernel (a
+  fused multiply-add chain, 2 or 4 interleaved chains summed pairwise, or
+  rounded products added in order), tiles the output and blocks k per
+  tile (``_ynn_plan``). Every other pass is an Eigen tensor contraction on
+  XLA's intra-op thread pool, which cuts the contracted axis into blocks by
+  a cost model of the shape and of the pool's size (``_eigen_blocks``),
+  and sums one row apart in 8 lanes when its last row block is one row
+  wide (``_lone_taps``).
 
 So the reference's bits depend on the thread count: XLA sizes its pool to
 the larger of the host devices and the CPUs the process may run on. The
@@ -31,10 +34,10 @@ and the goldens, 8 host devices (``REFERENCE_THREADS``); ``resize_bilinear``
 takes the count as an argument, and tests/torch_pyramid_probe.py --cpus N
 holds it to the reference pinned to N CPUs. The probe's 31 sizes (landscape,
 square and portrait) and a seeded sweep are pinned bit-exact by
-tests/test_torch_frontend.py. Two classes of steps are not reproduced yet
-and raise rather than return other bits (``_refused``, ROADMAP C3): an
-axis resized from fewer than 32 pixels, and the width pass of a
-height-first step with fewer than 51 rows and a weight panel over 128 KiB.
+tests/test_torch_frontend.py. Two classes of steps are not reproduced and
+raise rather than return other bits (``_refused``, ROADMAP C3): a side of
+the image or of the result of one pixel, and an Eigen pass shrinking about
+30 times or more, where one output's taps meet three of its k shards.
 
 The fused multiply-adds go through float64 (exact product, then two
 roundings), the same bits on every device; in the rare case where the
@@ -105,46 +108,114 @@ def _np_fma(a, b, c) -> np.ndarray:
             + np.asarray(c, np.float64)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(in_size, out_size) float32 antialiased triangle-filter weights, with
-    the bits of the weights the reference's compiled resize computes."""
+def _tents(in_size: int, out_size: int) -> dict:
+    """The tent filter (in, out) and the sample positions (out,) in the four
+    roundings XLA's compiled fusions give them, keyed (position, tent): the
+    position (j + 0.5) * scale - 0.5 as one FMA ("fma") or as a multiply
+    then an add ("two": where LLVM folds it to a constant), and the tent
+    1 - |s - k| * rk rounded once ("fma") or twice ("mul")."""
     f32 = np.float32
     inv_scale = f32(1.0 / (out_size / in_size))
     rk = f32(f32(1.0) / f32(max(float(inv_scale), 1.0)))
     pos = np.arange(out_size, dtype=f32) + f32(0.5)
     k = np.arange(in_size, dtype=f32)[:, None]
-    # sample position: an FMA where XLA's loop computes it, two roundings
-    # where it constant-folds it (unrolled or remainder columns)
-    s_vec = _np_fma(pos, inv_scale, f32(-0.5))
-    s_sca = (pos * inv_scale + f32(-0.5)).astype(f32)
-    d_vec = np.abs(s_vec[None, :] - k).astype(f32)
-    d_sca = np.abs(s_sca[None, :] - k).astype(f32)
-    tent_vec = np.maximum(f32(1) - (d_vec * rk).astype(f32), f32(0))
-    tent_sca = np.maximum(_np_fma(-d_sca, rk, f32(1)), f32(0))
+    out = {}
+    for how, s in (("fma", _np_fma(pos, inv_scale, f32(-0.5))),
+                   ("two", (pos * inv_scale + f32(-0.5)).astype(f32))):
+        d = np.abs(s[None, :] - k).astype(f32)
+        out[how, "mul"] = (np.maximum(f32(1) - (d * rk).astype(f32), f32(0)),
+                           s)
+        out[how, "fma"] = (np.maximum(_np_fma(-d, rk, f32(1)), f32(0)), s)
+    return out
+
+
+def _sum_rows(t: np.ndarray, lanes: int = 1, parts: int = 1) -> np.ndarray:
+    """Column sums of t (rows, out) in float32, in the order of LLVM's loop
+    vectorizer over the rows: ``parts`` interleaved accumulators of
+    ``lanes`` lanes each take the rows' largest multiple of lanes * parts
+    (row i to lane i % lanes of part (i // lanes) % parts), the parts are
+    added in order, the lanes halved pairwise, and the rest of the rows
+    added one by one. One lane and one part is the plain row order."""
+    f32 = np.float32
+    step = lanes * parts
+    main = t.shape[0] - t.shape[0] % step if lanes > 1 else 0
+    acc = t[:step].astype(f32) if main else np.zeros((1,) + t.shape[1:], f32)
+    for r0 in range(step, main, step):
+        acc = (acc + t[r0:r0 + step]).astype(f32)
+    acc = acc.reshape((parts, lanes) + t.shape[1:]) if main else acc
+    if main:
+        acc = functools.reduce(lambda a, b: (a + b).astype(f32), acc)
+        while len(acc) > 1:
+            half = len(acc) // 2
+            acc = (acc[:half] + acc[half:]).astype(f32)
+    total = acc[0]
+    for r in range(main, t.shape[0]):
+        total = (total + t[r]).astype(f32)
+    return total
+
+
+def _totals(t: dict, in_size: int, out_size: int) -> np.ndarray:
+    """The column totals of the tents as the reference's reduce fusion sums
+    them (``_tents`` for the flavours)."""
+    f32 = np.float32
+    vec, sca = t["fma", "mul"][0], t["two", "fma"][0]
+    if in_size > 32:
+        # a reduce-window of 32 rows (centred in zero padding) and a reduce
+        # across the windows; the row loop is vectorised over 32 columns
+        # from 352 columns on, unrolled (constant positions) below
+        cols = np.arange(out_size)
+        tot = (cols < out_size - out_size % 32 if out_size >= 352
+               else np.zeros(out_size, bool))
+        wt = np.where(tot[None], vec, sca).astype(f32)
+        pad = (-in_size) % 32
+        wt = np.concatenate([np.zeros((pad // 2, out_size), f32), wt,
+                             np.zeros((pad - pad // 2, out_size), f32)])
+        total = np.zeros(out_size, f32)
+        for r0 in range(0, wt.shape[0], 32):
+            total = (total + _sum_rows(wt[r0:r0 + 32])).astype(f32)
+        return total
+    # up to 32 rows: one loop fusion, a loop over the columns around the
+    # loop over the rows, which LLVM either unrolls whole (then it
+    # vectorises the columns and the rows add in order) or vectorises
+    if out_size > in_size:                # rk = 1: both tents round alike
+        return _sum_rows(vec)
+    if in_size <= 24:                     # the row loop unrolled
+        if out_size <= 8:                 # ... and the fusion folded
+            return _sum_rows(t["two", "mul"][0])
+        # row 0's distance |s - 0| loses a fabs, so its tent is one FMA
+        return _sum_rows(np.concatenate([t["fma", "fma"][0][:1], vec[1:]]))
+    if in_size <= 27:                     # 8 lanes over 24 rows
+        return _sum_rows(vec, 8)
+    return _sum_rows(vec, 4, 2)           # 2 x 4 lanes over 24 rows
+
+
+@functools.lru_cache(maxsize=64)
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 antialiased triangle-filter weights, with
+    the bits of the weights the reference's compiled resize computes.
+
+    Two fusions compute them: one sums the tents' columns (``_totals``),
+    the other divides each tent by its column's total. Each rounds as
+    LLVM compiled it for an AVX-512 host (256-bit vectors): where a
+    loop is vectorised, the sample position is an FMA and the tent a
+    multiply, then a subtraction; where LLVM unrolls a loop and folds the
+    positions to constants, the other way round (``_tents``)."""
+    f32 = np.float32
+    t = _tents(in_size, out_size)
     cols = np.arange(out_size)
-
-    def vectorised(min_cols, width):
-        if out_size < min_cols:           # XLA unrolls the whole row
-            return np.zeros(out_size, bool)
-        return cols < out_size - out_size % width
-
-    fin = vectorised(88, 8)               # the normalising fusion
-    tot = vectorised(352, 32)             # the fusion feeding the totals
-    w = np.where(fin[None], tent_vec, tent_sca).astype(f32)
-    wt = np.where(tot[None], tent_vec, tent_sca).astype(f32)
-    pad = (-in_size) % 32
-    wt = np.concatenate([np.zeros((pad // 2, out_size), f32), wt,
-                         np.zeros((pad - pad // 2, out_size), f32)])
-    total = np.zeros(out_size, f32)
-    for r0 in range(0, wt.shape[0], 32):  # windows of 32, then across
-        part = np.zeros(out_size, f32)
-        for r in range(r0, r0 + 32):
-            part = (part + wt[r]).astype(f32)
-        total = (total + part).astype(f32)
+    if in_size in (4, 8) and out_size <= 11:
+        w, sample = t["two", "mul"]       # LLVM folds the whole fusion
+    else:
+        # the column loop is vectorised by 8 from 88 columns on (96 when
+        # enlarging, whose tent has no multiply), unrolled below
+        fin = (cols < out_size - out_size % 8
+               if out_size >= (96 if out_size > in_size else 88)
+               else np.zeros(out_size, bool))
+        w = np.where(fin[None], t["fma", "mul"][0], t["two", "fma"][0])
+        sample = np.where(fin, t["fma", "mul"][1], t["two", "fma"][1])
+    total = _totals(t, in_size, out_size)
     w = np.where(np.abs(total) > f32(1000.0 * np.finfo(f32).eps),
                  w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    sample = np.where(fin, s_vec, s_sca)
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return np.where(inside[None, :], w, f32(0.0)).astype(f32)
 
@@ -279,8 +350,9 @@ def _threads_by_k(m: int, n: int, k: int, threads: int) -> int:
 
 def _eigen_blocks(k: int, out: int, other: int, threads: int):
     """The k blocks of the reference's contraction for a pass contracting k
-    into ``out`` outputs over ``other`` rows, and the m block sizes its
-    kernel calls see: ([(start, end)], [mc])."""
+    into ``out`` outputs over ``other`` rows, the m and n block sizes its
+    kernel calls see, and the starts of its k shards: ([(start, end)],
+    [mc], [nc], shard_starts)."""
     m, n = other, out
     if threads > 1:
         nt = _pool_threads(m, n, k, threads)
@@ -292,18 +364,20 @@ def _eigen_blocks(k: int, out: int, other: int, threads: int):
             # sharded by k: shards of at least 96, each blocked again
             size = min(k, max(96, _divup(_divup(k, ntk), 8) * 8))
             shards = _divup(k, size)
-            blocks, mcs = [], []
+            blocks, mcs, ncs = [], [], []
             for s in range(0, k, size):
                 e = min(k, s + size)
-                kc, mc, _ = _blocking(e - s, m, n, shards)
+                kc, mc, nc = _blocking(e - s, m, n, shards)
                 blocks += [(a, min(e, a + kc)) for a in range(s, e, kc)]
                 mcs.append(mc)
-            return blocks, mcs
+                ncs.append(nc)
+            return blocks, mcs, ncs, tuple(range(0, k, size))
         if nt > 1:
-            kc, mc, _ = _blocking(k, m, n, nt, _shard_by_col(m, n, nt))
-            return [(a, min(k, a + kc)) for a in range(0, k, kc)], [mc]
-    kc, mc, _ = _blocking_single(k, m, n)
-    return [(a, min(k, a + kc)) for a in range(0, k, kc)], [mc]
+            kc, mc, nc = _blocking(k, m, n, nt, _shard_by_col(m, n, nt))
+            return ([(a, min(k, a + kc)) for a in range(0, k, kc)], [mc],
+                    [nc], (0,))
+    kc, mc, nc = _blocking_single(k, m, n)
+    return [(a, min(k, a + kc)) for a in range(0, k, kc)], [mc], [nc], (0,)
 
 
 def _split_long(s: int, e: int) -> List[int]:
@@ -314,36 +388,178 @@ def _split_long(s: int, e: int) -> List[int]:
     return _split_long(s, h) + [h] + _split_long(h, e)
 
 
+# XLA:CPU hands the width pass of a height-first resize (image rows times
+# the weights, contracted on the image's columns) to YNNPACK. Its dot picks
+# a kernel by a cost model when XLA defines it (the rows not yet known),
+# packs the weights for that kernel, splits the output into tiles at run
+# time and picks a kernel again for each tile's shape, and blocks k so that
+# the weights a tile reads at once fit 128 KiB. The restatement below reads
+# jax 0.9.0's YNNPACK for an AVX-512 host; none of it depends on the thread
+# count.
+
+# YNNPACK's fp32 dot kernels in the order it tries them, as (block_m,
+# block_n, block_k, cost of a block, fused multiply-add, tile_n). block_k is
+# the kernel's k interleave: its lanes. The AVX and SSE2 kernels multiply,
+# then add. (The AVX2 kernels without FMA tie the AVX2+FMA3 ones listed
+# before them at every shape, and a tie keeps the first.)
+_YNN_KERNELS = tuple(
+    (bm, bn, bk, c, fused, tile_n) for fused, tile_n, rows in (
+        (True, 16, ((1, 64, 1, 58), (2, 64, 1, 63), (3, 64, 1, 68),
+                    (4, 64, 1, 73), (5, 64, 1, 78), (2, 32, 1, 41),
+                    (3, 32, 1, 46), (4, 32, 1, 51), (5, 32, 1, 56),
+                    (5, 16, 1, 45))),                   # avx512f, k1
+        (True, 8, ((1, 32, 2, 58), (2, 32, 2, 63), (3, 32, 2, 68),
+                   (4, 32, 2, 73), (5, 32, 2, 78), (4, 16, 2, 51),
+                   (4, 8, 2, 40), (8, 8, 2, 60))),      # avx512f, k2
+        (True, 4, ((1, 32, 4, 102), (2, 32, 4, 107), (3, 16, 4, 68),
+                   (4, 16, 4, 73), (5, 16, 4, 78), (2, 8, 4, 41),
+                   (4, 8, 4, 51), (6, 8, 4, 61), (4, 4, 4, 40),
+                   (8, 4, 4, 60), (12, 4, 4, 80))),     # avx512f, k4
+        (True, 8, ((1, 32, 1, 58), (2, 32, 1, 63), (1, 16, 1, 36),
+                   (2, 16, 1, 41), (3, 16, 1, 46), (4, 16, 1, 51),
+                   (5, 16, 1, 56), (6, 16, 1, 61), (8, 8, 1, 60))),  # fma3
+        (True, 4, ((1, 16, 2, 58), (2, 16, 2, 63), (3, 8, 2, 46),
+                   (4, 8, 2, 51), (5, 8, 2, 56), (6, 8, 2, 61),
+                   (4, 4, 2, 40), (5, 4, 2, 45), (6, 4, 2, 50),
+                   (8, 4, 2, 60))),                     # avx2 + fma3
+        (False, 8, ((1, 32, 1, 58), (2, 32, 1, 63), (2, 16, 1, 41),
+                    (3, 16, 1, 46), (4, 16, 1, 51), (4, 8, 1, 40),
+                    (6, 8, 1, 50), (8, 8, 1, 60))),     # avx
+        (False, 4, ((1, 16, 1, 58), (2, 16, 1, 63), (3, 16, 1, 68),
+                    (2, 8, 1, 41), (3, 8, 1, 46), (4, 8, 1, 51),
+                    (4, 4, 1, 40), (6, 4, 1, 50), (8, 4, 1, 60))))  # sse2
+    for bm, bn, bk, c in rows)
+# a k block keeps block_n x k_block x 4 bytes of the weights in this
+_YNN_CACHE = 128 * 1024
+# XLA defines the dot before it knows the rows: YNNPACK's default extent
+_YNN_UNKNOWN = 2048
+# from this many rows on, the weights are packed for the defined kernel
+_YNN_PACK_ROWS = 51
+
+
+def _ynn_cost(kern, m: int, n: int, k: int) -> np.float32:
+    """YNNPACK's estimate_dot_cost, in its float32 steps."""
+    f = np.float32
+    return (f(f(f(_divup(m, kern[0])) * f(_divup(n, kern[1])))
+              * f(_divup(k, kern[2]))) * f(kern[3]))
+
+
+def _ynn_kernel(m: int, n: int, k: int, pool=_YNN_KERNELS):
+    """get_dot_kernel: the cheapest kernel of ``pool``, the first of a tie."""
+    best, cost = None, np.float32(np.inf)
+    for kern in pool:
+        c = _ynn_cost(kern, m, n, k)
+        if c < cost:
+            best, cost = kern, c
+    return best
+
+
+def _ynn_tiles(m: int, n: int, k: int, block_n: int) -> Tuple[int, int]:
+    """The run-time split of the output into (rows, columns) tiles
+    (YNNPACK's choose_split_factors): grow a tile from min(m, 16) x block_n
+    by doubling until it holds min(m, 64) x min(n, 64) outputs and either
+    it or its rows + columns over min(k, 1024) passes 65535 elements."""
+    kk, target = min(k, 1024), min(n, 64) * min(m, 64)
+    cols, rows = min(block_n, n), min(m, 16)
+    while True:
+        if rows * cols >= target and (rows * cols > 0xffff
+                                      or (rows + cols) * kk > 0xffff):
+            return rows, cols
+        if cols < n and not (4 * cols >= rows and rows < m):
+            cols *= 2
+        elif rows >= m or (cols < n and rows >= 4 * cols):
+            return rows, cols
+        else:
+            rows *= 2
+
+
+def _ynn_sub(kern, k: int, block_n: int) -> tuple:
+    """The plan of one tile: k blocks that keep block_n columns of the
+    weights within ``_YNN_CACHE``, summed by the kernel's arithmetic."""
+    bk = kern[2]
+    kb = max(bk, _YNN_CACHE // (4 * block_n * bk) * bk)
+    starts = tuple(range(0, k, kb))
+    if bk > 1:
+        return ("lanes", bk, k - k % bk, starts)
+    return ("chain" if kern[4] else "mul", starts)
+
+
+def _ynn_plan(k: int, out: int, other: int) -> tuple:
+    """The reference's width pass as YNNPACK runs it: ("tiles", base,
+    others), ``base`` the plan of most tiles and ``others`` the tiles
+    ``(r0, r1, c0, c1, plan)`` that sum otherwise.
+
+    The defined kernel is the cheapest for the unknown rows. From
+    ``_YNN_PACK_ROWS`` rows on, the weights are packed for it: each tile
+    picks among the kernels that read that packing, and k is blocked for
+    the packed block_n. Below, a one-lane kernel that reads the weights as
+    they are is kept unless it costs over twice the defined one; the tiles
+    then span all rows, and each blocks k for its own width."""
+    m = other
+    best = _ynn_kernel(_YNN_UNKNOWN, out, k)
+    fits = [kn for kn in _YNN_KERNELS
+            if kn[2] == best[2] and best[1] % kn[5] == 0]
+    packed = True
+    if m < _YNN_PACK_ROWS and best[2] > 1:
+        lane1 = _ynn_kernel(_YNN_UNKNOWN, out, k,
+                            [kn for kn in _YNN_KERNELS if kn[2] == 1])
+        if (_ynn_cost(lane1, _YNN_UNKNOWN, out, k)
+                <= 2 * _ynn_cost(best, _YNN_UNKNOWN, out, k)):
+            best, packed = lane1, False
+    elif m < _YNN_PACK_ROWS:
+        packed = False
+    if not packed:
+        fits = [kn for kn in _YNN_KERNELS if kn[2] == 1]
+    rows, cols = _ynn_tiles(m, out, k, best[1])
+    if not packed or m < _YNN_PACK_ROWS:
+        rows = m
+    tiles = []
+    for r0 in range(0, m, rows):
+        for c0 in range(0, out, cols):
+            mt, nt = min(rows, m - r0), min(cols, out - c0)
+            kern = _ynn_kernel(mt, nt, k, fits)
+            tiles.append((r0, r0 + mt, c0, c0 + nt,
+                          _ynn_sub(kern, k, best[1] if packed else nt)))
+    subs = [t[4] for t in tiles]
+    base = max(dict.fromkeys(subs), key=subs.count)
+    return ("tiles", base, tuple(t for t in tiles if t[4] != base))
+
+
 @functools.lru_cache(maxsize=512)
 def _dot_plan(kind: str, k: int, out: int, other: int,
               threads: int = REFERENCE_THREADS):
     """How the reference's CPU dot sums over the contracted axis k for one
     resize pass of ``other`` rows into ``out`` outputs.
 
-    Kind "w", the width pass of a height-first resize, is XLA's own tiled
-    dot, the same on any thread count: ``("chain", block_starts)`` or
-    ``("lanes", lanes, main, block_starts)``; in the lanes plan each k-block
-    of 1024 has its own lanes, summed pairwise, and the blocks are added in
-    order. Kind "e" is every other pass (Eigen, see ``_eigen_blocks``):
-    ``("chain", block_starts, lone)``, where ``lone`` is None, or, when the
-    kernel's last m block is one row wide, the Eigen block starts that
-    row (the pass's last ``other`` row) is summed over in 8 lanes
-    (``_lone_taps``)."""
+    Kind "w", the width pass of a height-first resize, is YNNPACK's dot
+    (``_ynn_plan``), the same on any thread count: ``("tiles", base,
+    others)``, each plan one of ``("chain", block_starts)``, ``("mul",
+    block_starts)`` (a kernel without FMA: each product rounded, then
+    added) or ``("lanes", lanes, main, block_starts)`` (each k-block's lanes
+    summed pairwise, the blocks added in order). Kind "e" is every other
+    pass (Eigen, see ``_eigen_blocks``): ``("chain", block_starts, lone,
+    col)``, where
+    ``lone`` is None, or, when the kernel's last m block is one row wide,
+    the Eigen block starts that row (the pass's last ``other`` row) is
+    summed over in 8 lanes (``_lone_taps``); ``col`` is None, or, when its
+    last n block is one column wide, the k shard starts of the one chain
+    the last column is summed in."""
     if kind == "w":
-        if (other >= 51 and (out - 1) % 64 < 48) or (out == 16 and other > 1):
-            lanes = 4 if (out - 1) % 32 < 16 else 2
-            return ("lanes", lanes, k - k % lanes, tuple(range(0, k, 1024)))
-        return ("chain", tuple(range(0, k, 512)))
-    blocks, mcs = _eigen_blocks(k, out, other, threads)
+        return _ynn_plan(k, out, other)
+    blocks, mcs, ncs, shards = _eigen_blocks(k, out, other, threads)
     starts = []
     for s, e in blocks:
         starts += [s] + _split_long(s, e)
     lone = None
     if any(other % mc == 1 or other == 1 for mc in mcs):
         lone = tuple(s for s, _ in blocks)
-    return ("chain", tuple(starts), lone)
+    # a last n block one column wide: the kernel runs it as a matrix-vector
+    # product that adds each k block onto the output, one chain per shard
+    col = shards if any(out % nc == 1 for nc in ncs) else None
+    return ("chain", tuple(starts), lone, col)
 
 
+@functools.lru_cache(maxsize=64)
 def _tap_table(in_size: int, out_size: int):
     """Per output pixel its non-zero taps: (index (T, out), ok (T, out))."""
     w = resize_weights(in_size, out_size)
@@ -377,20 +593,17 @@ def _taps(in_size: int, out_size: int, plan: tuple, device: torch.device):
     exact 0 elsewhere: a fused multiply-add of a finite pixel with weight 0
     leaves an accumulator's bits as they were, and one onto +0 is the
     rounded product, so every accumulator runs over all T taps unmasked.
-    For a chain, c counts k-blocks from the column's first one; for lanes,
-    c is the lane plus ``lanes`` times that block count (a column's taps
-    straddle at most one block edge), and c = 2 * lanes the remainder."""
+    For a chain (and "mul"), c counts k-blocks from the column's first one;
+    for lanes, c is the lane plus ``lanes`` times that block count, and the
+    last accumulator takes the remainder past ``main``."""
     w, idx, ok = _tap_table(in_size, out_size)
-    if plan[0] == "chain":
-        block = np.searchsorted(np.asarray(plan[1]), idx, side="right") - 1
-        acc = block - block[0]
-        n_acc = int(acc[ok].max()) + 1
-    else:
-        lanes = plan[1]
-        block = np.searchsorted(np.asarray(plan[3]), idx, side="right") - 1
-        acc = np.where(idx < plan[2], (block - block[0]) * lanes
-                       + idx % lanes, 2 * lanes)
-        n_acc = 2 * lanes + 1
+    starts = np.asarray(plan[-1])
+    block = np.searchsorted(starts, idx, side="right") - 1
+    block = block - block[0]
+    if plan[0] != "lanes":
+        return _weights(w, idx, ok, block, int(block[ok].max()) + 1, device)
+    lanes, n_acc = plan[1], (int(block[ok].max()) + 1) * plan[1] + 1
+    acc = np.where(idx < plan[2], block * lanes + idx % lanes, n_acc - 1)
     return _weights(w, idx, ok, acc, n_acc, device)
 
 
@@ -399,37 +612,37 @@ def _lone_taps(in_size: int, out_size: int, starts: tuple,
                device: torch.device):
     """The taps of the pass's last row where the kernel sums it alone: per
     Eigen k block (``starts``), 8 lanes of fused multiply-adds over k
-    (relative to the block's start) on its largest multiple of 8, then the
-    rest as rounded products in groups of 4, 2 and 1. Accumulators: 15 per
-    block (8 lanes, 4, 2, 1), counted from the output's first block; a
-    window of taps meets at most two blocks."""
+    (relative to the block's start) on its largest multiple of 16, then the
+    rest as rounded products in groups of 8, 4, 2 and 1. Accumulators: 23
+    per block (8 lanes, 8, 4, 2, 1), counted from the output's first block;
+    a window of taps meets at most two blocks."""
     w, idx, ok = _tap_table(in_size, out_size)
     st = np.asarray(starts)
     ends = np.append(st[1:], in_size)
     block = np.searchsorted(st, idx, side="right") - 1
     rel = idx - st[block]
     length = (ends - st)[block]
-    main = length - length % 8
+    main = length - length % 16
     r = rel - main                      # position within the tail
-    rest = length % 8
+    g8, g4, g2 = (length & 8), (length & 4), (length & 2)
     slot = np.where(rel < main, rel % 8,
-                    np.where(r < (rest & 4), 8 + r,
-                             np.where(r < (rest & 4) + (rest & 2),
-                                      12 + r - (rest & 4), 14)))
-    acc = (block - block[0]) * 15 + slot
-    return _weights(w, idx, ok, acc, 30, device)
+                    np.where(r < g8, 8 + r,
+                             np.where(r < g8 + g4, 16 + r - g8,
+                                      np.where(r < g8 + g4 + g2,
+                                               20 + r - g8 - g4, 22))))
+    acc = (block - block[0]) * 23 + slot
+    return _weights(w, idx, ok, acc, 46, device)
 
 
 def _accumulate(x: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor,
-                round_last: bool = False) -> Tuple[torch.Tensor, ...]:
+                rounded: slice = slice(0)) -> Tuple[torch.Tensor, ...]:
     """Each accumulator's fused multiply-add chain over the taps (a float32
     product is exact in float64, so (p + c) in float64 rounded to float32
     stands for a fused multiply-add): (R, out) tensors, one per
-    accumulator. With ``round_last`` the last accumulator multiplies, then
-    adds (the lanes plan's remainder)."""
+    accumulator. The accumulators in ``rounded`` multiply, then add (the
+    lanes plan's remainder, every accumulator of a kernel without FMA)."""
     prods = x.double()[:, idx].unsqueeze(2) * wt       # (R, T, C, out)
-    if round_last:
-        prods[:, :, -1] = prods[:, :, -1].float()
+    prods[:, :, rounded] = prods[:, :, rounded].float()
     acc = torch.zeros(prods[:, 0].shape, dtype=torch.float32,
                       device=x.device)
     for t in range(idx.shape[0]):      # one fused multiply-add per tap
@@ -439,14 +652,18 @@ def _accumulate(x: torch.Tensor, idx: torch.Tensor, wt: torch.Tensor,
 
 def _lone_sum(a) -> torch.Tensor:
     """Combine ``_lone_taps``' accumulators as the kernel does: per block
-    ((l0+l1)+(l4+l5))+((l2+l3)+(l6+l7)), then the group of 4 summed
-    pairwise, then the pair, then the single; the blocks in order."""
+    the 8 lanes ((l0+l1)+(l4+l5))+((l2+l3)+(l6+l7)), plus the group of 8
+    reduced alike, then the group of 4 summed pairwise, then the pair, then
+    the single; the blocks in order."""
+    def eight(l):
+        return ((l[0] + l[1]) + (l[4] + l[5])) + ((l[2] + l[3]) + (l[6] + l[7]))
+
     def block(b):
-        l = a[b:b + 15]
-        out = ((l[0] + l[1]) + (l[4] + l[5])) + ((l[2] + l[3]) + (l[6] + l[7]))
-        out = out + ((l[8] + l[9]) + (l[10] + l[11]))
-        return (out + (l[12] + l[13])) + l[14]
-    return block(0) + block(15)
+        l = a[b:b + 23]
+        out = eight(l[0:8]) + eight(l[8:16])
+        out = out + ((l[16] + l[17]) + (l[18] + l[19]))
+        return (out + (l[20] + l[21])) + l[22]
+    return block(0) + block(23)
 
 
 def _resize_pass(x: torch.Tensor, out_size: int, kind: str,
@@ -454,18 +671,35 @@ def _resize_pass(x: torch.Tensor, out_size: int, kind: str,
     """Resize the last axis of x (R, in) to (R, out_size), summing each
     output's taps in the reference dot's order (``_dot_plan``)."""
     plan = _dot_plan(kind, x.shape[1], out_size, x.shape[0], threads)
-    if kind == "e" and plan[2] is not None:
-        head = _resize_rows(x[:-1], out_size, plan[:2])
+    if kind == "w":                    # the tiles that sum otherwise last
+        out = _resize_rows(x, out_size, plan[1])
+        for sub in dict.fromkeys(t[4] for t in plan[2]):
+            box = [t for t in plan[2] if t[4] == sub]
+            r0, c0 = min(t[0] for t in box), min(t[2] for t in box)
+            blk = _resize_rows(x[r0:max(t[1] for t in box)], out_size, sub,
+                               slice(c0, max(t[3] for t in box)))
+            for t in box:
+                out[t[0]:t[1], t[2]:t[3]] = blk[t[0] - r0:t[1] - r0,
+                                               t[2] - c0:t[3] - c0]
+        return out
+    out = _resize_rows(x, out_size, plan[:2])
+    if plan[2] is not None:
         idx, wt = _lone_taps(x.shape[1], out_size, plan[2], x.device)
-        return torch.cat([head, _lone_sum(_accumulate(x[-1:], idx, wt))])
-    return _resize_rows(x, out_size, plan[:2] if kind == "e" else plan)
+        out[-1:] = _lone_sum(_accumulate(x[-1:], idx, wt))
+    if plan[3] is not None:
+        out[:, -1:] = _resize_rows(x, out_size, ("chain", plan[3]),
+                                   slice(out_size - 1, None))
+    return out
 
 
-def _resize_rows(x: torch.Tensor, out_size: int, plan: tuple
-                 ) -> torch.Tensor:
+def _resize_rows(x: torch.Tensor, out_size: int, plan: tuple,
+                 cols: slice = slice(None)) -> torch.Tensor:
+    """The output columns ``cols`` of x's resize summed by one plan."""
     idx, wt = _taps(x.shape[1], out_size, plan, x.device)
-    a = _accumulate(x, idx, wt, round_last=plan[0] == "lanes")
-    if plan[0] == "chain":             # the k-blocks, in order
+    idx, wt = idx[:, cols], wt[..., cols]
+    a = _accumulate(x, idx, wt, {"chain": slice(0), "mul": slice(None),
+                                 "lanes": slice(-1, None)}[plan[0]])
+    if plan[0] != "lanes":             # the k-blocks, in order
         out = a[0]
         for blk in a[1:]:
             out = out + blk
@@ -476,7 +710,10 @@ def _resize_rows(x: torch.Tensor, out_size: int, plan: tuple
             return (a[b] + a[b + 1]) + (a[b + 2] + a[b + 3])
         return a[b] + a[b + 1]
 
-    return (lanes(0) + lanes(plan[1])) + a[-1]
+    out = lanes(0)
+    for b in range(plan[1], len(a) - 1, plan[1]):
+        out = out + lanes(b)
+    return out + a[-1]
 
 
 # Image sizes whose 8-level, scale-1.2 pyramids tests/test_torch_frontend.py
@@ -499,25 +736,44 @@ RESIZE_STEPS = (((480, 752), (240, 376)), ((480, 752), (200, 320)),
                 ((480, 752), (360, 564)), ((480, 752), (120, 188)))
 
 
-def _refused(h: int, w: int, c: int, d: int) -> str:
+@functools.lru_cache(maxsize=256)
+def _refused(h: int, w: int, c: int, d: int,
+             threads: int = REFERENCE_THREADS) -> str:
     """The classes of resize steps whose order is not reproduced (ROADMAP
-    C3), as a reason, or "" for a step the port reproduces."""
-    if (c != h and h < 32) or (d != w and w < 32):
-        return "an axis resized from fewer than 32 pixels"
-    height_first = not (c != h and d != w and c * w * (h + d) > h * d * (w + c))
-    if height_first and d != w and c < 51 and not (d == 16 and c > 1) \
-            and w * d * 4 > 128 * 1024:
-        return ("a width pass of fewer than 51 rows with a weight panel "
-                "over 128 KiB")
+    C3), as a reason, or "" for a step the port reproduces: a side of the
+    image or of the result of one pixel (XLA turns a dot with a side of one
+    into a vector product and reduces it), and an Eigen pass where one
+    output's taps meet three or more of its k shards (a pass shrinking by a
+    factor of about 30 or more: Eigen adds the shards' partial sums in a
+    tree the port does not restate)."""
+    if 1 in (h, w, c, d):
+        return "a side of one pixel"
+    if c != h and d != w and c * w * (h + d) > h * d * (w + c):
+        passes = ((w, d, h), (h, c, d))
+    else:
+        passes = ((h, c, w),) if c != h else ()
+    if any(_over_three_shards(k, out, other, threads)
+           for k, out, other in passes):
+        return "an output's taps over three of Eigen's k shards"
     return ""
+
+
+def _over_three_shards(k: int, out: int, other: int, threads: int) -> bool:
+    """Whether an output of this Eigen pass has taps in three k shards."""
+    shards = _eigen_blocks(k, out, other, threads)[3]
+    _, idx, ok = _tap_table(k, out)
+    span = (np.searchsorted(shards, np.where(ok, idx, 0).max(0), "right")
+            - np.searchsorted(shards, idx[0], "right"))
+    return bool(span.max() >= 2)
 
 
 def resize_bilinear(img: torch.Tensor, shape: Tuple[int, int]
                     ) -> torch.Tensor:
     """``jax.image.resize(img, shape, "bilinear")`` for a 2-D image, with
     the bits of the reference's compiled resize in the regime it runs in
-    here (``REFERENCE_THREADS``). Raises for a step of a class whose order
-    is not reproduced (``_refused``) rather than return other bits."""
+    here (``REFERENCE_THREADS``), at any image size. Raises for the steps
+    whose order is not reproduced, a side of one pixel or a shrink of about
+    30 times in one pass (``_refused``), rather than return other bits."""
     return _resize(img, shape, REFERENCE_THREADS)
 
 
@@ -532,7 +788,7 @@ def _resize(img: torch.Tensor, shape: Tuple[int, int], threads: int
     out = img
     if (c, d) == (h, w):
         return out.contiguous()
-    why = _refused(h, w, c, d)
+    why = _refused(h, w, c, d, threads)
     if why:
         raise NotImplementedError(
             f"resize {h}x{w} -> {c}x{d}: {why}; its bits are not reproduced "

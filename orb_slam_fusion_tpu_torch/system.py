@@ -12,11 +12,11 @@ Frames go through the reference's preprocessing with its bits: the colour
 conversion ``img @ [0.299, 0.587, 0.114]`` is, as XLA:CPU compiles the
 reference's dot of 3, a chain of fused multiply-adds over the channels in
 order; the resize is ``frontend/pyramid.py::resize_bilinear``, which
-reproduces the reference's dot schedule at every size outside two named
-classes (ROADMAP C3). That schedule follows the size of XLA's thread pool;
-the port reproduces the 8-thread regime of the reference's tests and
-goldens (``pyramid.REFERENCE_THREADS``; tests/torch_pyramid_probe.py
---step HxW:hxw probes a frame resize).
+reproduces the reference's weights and dot schedule at every size but
+one named class, a side of one pixel (ROADMAP C3). That schedule follows
+the size of XLA's thread pool; the port reproduces the 8-thread regime of
+the reference's tests and goldens (``pyramid.REFERENCE_THREADS``;
+tests/torch_pyramid_probe.py --step HxW:hxw probes a frame resize).
 """
 
 from __future__ import annotations

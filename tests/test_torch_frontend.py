@@ -11,10 +11,12 @@ seed. What is bit-exact and what is not:
   octave: keypoints, octaves, responses, angles, descriptors. The angle's
   moments are summed in the reference's compiled order and its arctangent
   is glibc's ``atan2f`` rebuilt in float32 steps (ROADMAP.md, C4).
-* The resize reproduces the reference's dot schedule at every image size
-  (XLA:CPU's Eigen contraction on the tests' 8-thread pool, ROADMAP.md
-  C3), portrait sizes included; the classes it cannot reproduce yet raise
-  instead of returning other bits.
+* The resize reproduces the reference's weights and dot schedule at every
+  image size (XLA:CPU's loop fusions, its Eigen contraction on the tests'
+  8-thread pool and YNNPACK's dot, ROADMAP.md C3), portrait sizes
+  included; the classes it does not reproduce (a side of one pixel, a
+  shrink of about 30 times in one pass) raise instead of returning other
+  bits.
 """
 
 import hashlib
@@ -206,44 +208,102 @@ def _sweep_cases():
                                        f"-{c['scale']}")
 def test_pyramid_sweep_matches_reference(case):
     """A seeded sweep of shapes of both orientations (sides 64-800) and
-    five pyramids at other nLevels/scaleFactor: each level the port builds
+    five pyramids at other nLevels/scaleFactor: every level the port builds
     from its own previous one equals the reference's, by the per-level
     digests tests/make_torch_goldens.py wrote in the tests' regime (8 host
-    devices), until the resize refuses a step by one of its named classes
-    (``pyramid._refused``, ROADMAP C3); no level returns other bits."""
+    devices)."""
     h, w, levels, scale = case["h"], case["w"], case["levels"], case["scale"]
     img = (np.random.RandomState(h * 7 + w).rand(h, w) * 255).astype(
         np.float32)
     assert _sha(img) == case["digests"][0]
     lv = torch.from_numpy(img)
     for lvl, s in enumerate(tpyr.level_shapes(h, w, levels, scale)[1:], 1):
-        why = tpyr._refused(*lv.shape, *s)
-        if why:
-            with pytest.raises(NotImplementedError, match="C3"):
-                tpyr.resize_bilinear(lv, s)
-            return
         lv = tpyr.resize_bilinear(lv, s)
         assert _sha(lv.numpy()) == case["digests"][lvl], f"level {lvl}"
 
 
-def test_sweep_is_mostly_admitted():
-    """Most of the sweep's pyramids are reproduced whole: the refused
-    classes (skinny shapes' deep levels) stay a minority."""
-    whole = sum(not any(tpyr._refused(*a, *b) for a, b in zip(
-        tpyr.level_shapes(c["h"], c["w"], c["levels"], c["scale"])[:-1],
-        tpyr.level_shapes(c["h"], c["w"], c["levels"], c["scale"])[1:]))
-        for c in _sweep_cases())
-    assert whole >= 40, whole
+def test_sweep_is_admitted():
+    """No step of the sweep's 53 pyramids falls in a refused class
+    (``pyramid._refused``): deep levels of skinny images and other
+    nLevels/scaleFactor included."""
+    refused = [(c["h"], c["w"], a, b) for c in _sweep_cases()
+               for a, b in zip(
+                   tpyr.level_shapes(c["h"], c["w"], c["levels"],
+                                     c["scale"])[:-1],
+                   tpyr.level_shapes(c["h"], c["w"], c["levels"],
+                                     c["scale"])[1:])
+               if tpyr._refused(*a, *b)]
+    assert refused == []
 
 
-@pytest.mark.parametrize("src,dst", [((28, 400), (23, 333)),
-                                     ((44, 409), (37, 340))],
-                         ids=["side-under-32", "thin-width-pass"])
-def test_refused_resize_classes_raise(src, dst):
-    """The two classes whose order is not reproduced (an axis resized from
-    fewer than 32 pixels; the width pass of a height-first step with fewer
-    than 51 rows and a weight panel over 128 KiB, which XLA's own dot blocks
-    by another rule) raise instead of returning other bits (ROADMAP C3)."""
+# Steps that read XLA's weight fusions under 32 pixels (height and width
+# passes) and thin width passes whose weights pass 128 KiB (YNNPACK tiles
+# the columns and blocks k per tile), the shapes ROADMAP C3 names.
+FORMER_REFUSED = (((28, 400), (23, 333)), ((28, 400), (23, 400)),
+                  ((27, 300), (23, 300)), ((20, 300), (17, 300)),
+                  ((31, 200), (26, 200)), ((16, 64), (13, 64)),
+                  ((400, 28), (400, 23)), ((26, 236), (26, 197)),
+                  ((48, 300), (40, 250)), ((44, 409), (37, 340)),
+                  ((40, 600), (33, 500)), ((30, 900), (30, 750)),
+                  ((50, 1000), (42, 833)))
+
+
+@pytest.mark.parametrize("src,dst", FORMER_REFUSED,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_former_refused_steps_bit_exact(src, dst):
+    """Each of those steps is bit-exact against the jitted reference in the
+    tests' regime, on a seeded image."""
+    img = (np.random.RandomState(src[0] * 7 + src[1]).rand(*src)
+           * 255).astype(np.float32)
+    want = jax.jit(lambda a: jax.image.resize(a, dst, "bilinear"))(
+        jnp.asarray(img))
+    got = tpyr.resize_bilinear(torch.from_numpy(img), dst)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("n", range(2, 32))
+def test_resize_weights_under_32(n):
+    """The weights for in-sizes under 32, down- and upscaling (to 90 also
+    on every fifth size: enlarging to 88-95 unrolls the normalising fusion),
+    equal the reference's compiled ones bit for bit: read off its resize of
+    an identity (each output is one weight times 1.0), so no dot order
+    enters."""
+    outs = {max(2, n // 2), n - 1, 2 * n + 3} | ({90} if n % 5 == 0 else set())
+    for m in sorted(outs - {n}):
+        eye = jnp.eye(n, dtype=jnp.float32)
+        want = np.asarray(jax.jit(lambda e: jax.image.resize(
+            e, (m, n), "bilinear"))(eye)).T
+        got = tpyr.resize_weights(n, m)
+        np.testing.assert_array_equal(want.view(np.int32),
+                                      got.view(np.int32), err_msg=f"{n}->{m}")
+
+
+@pytest.mark.parametrize("src,dst", [((673, 653), (289, 361)),
+                                     ((1487, 769), (505, 769))],
+                         ids=["last-n-block-one-column",
+                              "last-row-tail-of-16"])
+def test_eigen_edge_blocks_bit_exact(src, dst):
+    """Two Eigen edge cases: a last n block one column wide (the kernel adds
+    each k block onto that column in one chain) and a lone last row whose k
+    block leaves a tail past its multiple of 16 (groups of 8, 4, 2, 1):
+    bit-exact against the jitted reference."""
+    img = (np.random.RandomState(2).rand(*src) * 255).astype(np.float32)
+    want = jax.jit(lambda a: jax.image.resize(a, dst, "bilinear"))(
+        jnp.asarray(img))
+    got = tpyr.resize_bilinear(torch.from_numpy(img), dst)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("src,dst", [((1, 200), (1, 150)),
+                                     ((200, 90), (150, 1)),
+                                     ((451, 481), (7, 481))],
+                         ids=["one-row", "one-column-result",
+                              "taps-over-three-k-shards"])
+def test_refused_classes_raise(src, dst):
+    """The classes whose order is not reproduced raise instead of returning
+    other bits (ROADMAP C3): a side of one pixel, whose dots XLA turns into
+    vector products and reductions, and an Eigen pass where an output's
+    taps meet three of its k shards."""
     with pytest.raises(NotImplementedError, match="C3"):
         tpyr.resize_bilinear(torch.zeros(src), dst)
 
