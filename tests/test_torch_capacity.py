@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import test_torch_helpers as h
+from torch_regime import pinned
 from orb_slam_fusion_tpu import lie as jlie
 from orb_slam_fusion_tpu.frontend.extractor import (OrbParams as JP,
                                                     inv_scale_sigma2 as jinv)
@@ -117,6 +118,7 @@ def _window_problems(seed):
     return pj, pt
 
 
+@pinned
 @pytest.mark.parametrize("chunk", [3, 5])
 def test_chunked_lm_chunk_by_chunk(chunk):
     pj, pt = _window_problems(0)

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import test_torch_helpers as h
+from torch_regime import pinned
 from orb_slam_fusion_tpu import sim as jsim
 from orb_slam_fusion_tpu.engine import MonoTracker as JTracker
 from orb_slam_fusion_tpu.engine import SlamConfig as JConfig
@@ -114,6 +115,7 @@ def _run():
                 ate=(ate_j, ate_t))
 
 
+@pinned
 @pytest.mark.parametrize("frame", CARRY_AT)
 def test_carried_state_steps_match(runs, frame):
     state, jt = runs["snaps"][frame]
@@ -139,6 +141,7 @@ def test_carried_state_steps_match(runs, frame):
         assert jt.last_kf_id == tt.last_kf_id
 
 
+@pinned
 def test_session_states_and_tracking(runs):
     lj, lt = runs["log_j"], runs["log_t"]
     assert [r[0] for r in lj] == [r[0] for r in lt]
@@ -147,6 +150,7 @@ def test_session_states_and_tracking(runs):
     assert sum(r[0] in ("ok", "init-done") for r in lt) > 60
 
 
+@pinned
 def test_session_counts_within_drift(runs):
     lj, lt = runs["log_j"], runs["log_t"]
     same = sum(a[1] == b[1] for a, b in zip(lj, lt))
@@ -157,6 +161,7 @@ def test_session_counts_within_drift(runs):
     assert abs(lj[-1][3] - lt[-1][3]) <= 0.05 * lj[-1][3]
 
 
+@pinned
 def test_session_ate(runs):
     ate_j, ate_t = runs["ate"]
     assert ate_t < 0.03

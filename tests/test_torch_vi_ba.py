@@ -37,6 +37,7 @@ import pytest
 import torch
 
 import torch_vio_problems as vp
+from torch_regime import pinned
 from orb_slam_fusion_tpu import lie as jlie
 from orb_slam_fusion_tpu.imu import preintegration as jp
 from orb_slam_fusion_tpu.imu.factors import information_from_cov as j_info
@@ -182,6 +183,7 @@ def _assert_state(js, ts, points_j=None, points_t=None, atol=1e-4):
                                    atol=1e-3, rtol=0)
 
 
+@pinned
 @pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
 @pytest.mark.parametrize("backward", [False, True],
                          ids=["forward", "use_backward"])

@@ -12,13 +12,16 @@ the port's tracker and both step that frame
 integer map tables exact; pose, velocity, bias and keyframe positions
 within 1e-4, except on the IMU-init keyframe, where they are held to
 1 cm (``MONO_INIT_ATOL``: the full VI-BA after a monocular init is flat
-in float32 in both packages).
+in float32 in both packages). The test runs in the pinned library regime
+(``torch_regime.PINNED``, ROADMAP C13): the carried states come from the
+reference's free-running session.
 """
 
 import jax.numpy as jnp
 import pytest
 
 import torch_vio_cases as cases
+from torch_regime import pinned
 from orb_slam_fusion_tpu import sim as jsim
 from orb_slam_fusion_tpu.engine import SlamConfig as JConfig
 from orb_slam_fusion_tpu.engine.vio_tracker import VioTracker as JVio
@@ -70,6 +73,7 @@ def run():
     return found, step_ref, step_port
 
 
+@pinned
 @pytest.mark.parametrize("label", cases.LABELS)
 def test_mono_vio_step_from_carried_state(run, label):
     found, step_ref, step_port = run
