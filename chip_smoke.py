@@ -1377,9 +1377,54 @@ def run_rgbd_session(dev):
     return out
 
 
+FISHEYE_TRIANGULATION = "fisheye_triangulation_frame0.npz"
+
+
+def check_fisheye_triangulation(dev):
+    """The far-point case of ROADMAP C14a on the card: the rays of frame 0
+    of the rendered KB8 pair (the golden that
+    ``tests/torch_triangulate_probe.py --write-golden`` writes from the
+    host) triangulated by ``cameras.triangulate`` on the card, held bit
+    for bit to the host's points. Also one call's launches and device
+    time under the profiler, and its time beside the library polish's
+    (``exact=False``, the mapping step's)."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import cameras
+
+    g = np.load(os.path.join(GOLDEN_DIR, FISHEYE_TRIANGULATION))
+    args = [torch.from_numpy(g[k]).to(dev)
+            for k in ("ray1", "ray2", "R21", "t21")]
+    X = cameras.triangulate(*args).cpu().numpy()
+    same = (X.view(np.int32) == g["X"].view(np.int32)) | (
+        np.isnan(X) & np.isnan(g["X"]))
+    if not same.all():
+        raise RuntimeError(f"fisheye triangulation: {int((~same).sum())} "
+                           f"values differ between the card and the host")
+    far = int(g["far"])
+    prof = profile_stages({
+        "fisheye triangulate": lambda: cameras.triangulate(*args),
+        "fisheye triangulate, library polish": lambda: cameras.triangulate(
+            *args, exact=False)}, cpu_ops=False)
+    out = dict(rows=int(X.shape[0]), bits_equal_to_host=True,
+               far_point_depth=float(X[far, 2]),
+               launches=prof["fisheye triangulate"]["kernels"],
+               device_busy_ms=prof["fisheye triangulate"]["device_busy_ms"],
+               library_launches=prof["fisheye triangulate, library polish"][
+                   "kernels"],
+               ms=_cuda_ms(lambda: cameras.triangulate(*args)),
+               library_ms=_cuda_ms(lambda: cameras.triangulate(
+                   *args, exact=False)))
+    print("fisheye_triangulation " + json.dumps(out) + "; one call on the "
+          "card equal to the host's points bit for bit", flush=True)
+    return out
+
+
 def run_fisheye_sessions(dev):
-    """The Kannala-Brandt sessions at the fisheye e2e test's widths: the
-    monocular one and the fisheye-stereo one against their goldens, then
+    """The far-point triangulation on the card against the host's
+    (``check_fisheye_triangulation``), then the Kannala-Brandt sessions at
+    the fisheye e2e test's widths: the monocular one and the
+    fisheye-stereo one against their goldens, then
     ``process_image`` on rendered 512x512 KB8 images, whose states must
     equal the golden's and whose extraction on the card must equal the
     host CPU's."""
@@ -1393,7 +1438,7 @@ def run_fisheye_sessions(dev):
     from orb_slam_fusion_tpu_torch.frontend.extractor import extract_features
 
     cfg = _config(FISHEYE_CONFIG)
-    outs = {}
+    outs = {"fisheye_triangulation": check_fisheye_triangulation(dev)}
 
     golden = _golden("fisheye_mono_session_512x512.json",
                      FISHEYE_MONO_FRAMES)

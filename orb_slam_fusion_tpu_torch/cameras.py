@@ -14,7 +14,9 @@ XLA:CPU, so those come out bit for bit; the arctangent is glibc's
 ``atan2f`` (``frontend/extractor.py::atan2f``), which XLA:CPU calls.
 Inside the reference's compiled programs XLA may contract a product and
 a sum into one fused multiply-add, so there the two agree to float32
-rounding.
+rounding, except where the port restates the fused order: the two-view
+triangulation's Gauss-Newton polish (``triangulate_refine``, ROADMAP
+C14a), which gives the reference's bits on the host and the card alike.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import math
 import torch
 
 from .frontend.extractor import atan2f
+from .utils.fused import contract_f32, solve3_f32
 
 PINHOLE = "pinhole"
 KANNALA_BRANDT8 = "kannala_brandt8"
@@ -184,17 +187,29 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def triangulate_midpoint(ray1: torch.Tensor, ray2: torch.Tensor,
-                         R21: torch.Tensor, t21: torch.Tensor
-                         ) -> torch.Tensor:
-    """Midpoint triangulation; returns the point in the cam-1 frame."""
-    d1 = _mv(R21, ray1)
+                         R21: torch.Tensor, t21: torch.Tensor,
+                         exact: bool = True) -> torch.Tensor:
+    """Midpoint triangulation; returns the point in the cam-1 frame.
+
+    ``exact`` rounds as the reference's eager call does on any device:
+    XLA:CPU compiles the lone ``R21 ray1`` dot as a chain of fused
+    multiply-adds, and each later product, sum and difference rounds on
+    its own, the sums over the three coordinates in order. Otherwise the
+    products are the library's (``_mv``, ``torch.sum``), which round as
+    MKL, cuBLAS and the device's reductions do."""
+    o1 = t21.expand(ray1.shape)
     d2 = ray2
-    o1 = t21.expand(d1.shape)
-    a = torch.sum(d1 * d1, dim=-1)
-    b = torch.sum(d1 * d2, dim=-1)
-    c = torch.sum(d2 * d2, dim=-1)
-    d = torch.sum(d1 * o1, dim=-1)
-    e = torch.sum(d2 * o1, dim=-1)
+    if exact:
+        d1 = contract_f32(ray1[..., None, :], R21)
+        p = torch.stack([d1 * d1, d1 * d2, d2 * d2, d1 * o1, d2 * o1])
+        a, b, c, d, e = ((p[..., 0] + p[..., 1]) + p[..., 2]).unbind(0)
+    else:
+        d1 = _mv(R21, ray1)
+        a = torch.sum(d1 * d1, dim=-1)
+        b = torch.sum(d1 * d2, dim=-1)
+        c = torch.sum(d2 * d2, dim=-1)
+        d = torch.sum(d1 * o1, dim=-1)
+        e = torch.sum(d2 * o1, dim=-1)
     denom = a * c - b * b
     denom = torch.where(torch.abs(denom) < _EPS,
                         torch.full_like(denom, _EPS), denom)
@@ -205,7 +220,61 @@ def triangulate_midpoint(ray1: torch.Tensor, ray2: torch.Tensor,
 def triangulate_refine(X0: torch.Tensor, ray1: torch.Tensor,
                        ray2: torch.Tensor, R21: torch.Tensor,
                        t21: torch.Tensor, iters: int = 3) -> torch.Tensor:
-    """Fixed-count Gauss-Newton polish of the two-view reprojection error."""
+    """Fixed-count Gauss-Newton polish of the two-view reprojection error.
+
+    The reference's body runs inside ``lax.fori_loop``, one compiled
+    program even under an eager caller. XLA:CPU emits its four small dots
+    (``R21 X``, ``J2p R21``, ``J^T J``, ``J^T r``) as chains of fused
+    multiply-adds and calls LAPACK for the solve; a far point's
+    Gauss-Newton steps amplify one rounding of them into a percent of
+    depth (ROADMAP C14a). So the dots are ``contract_f32`` chains, the
+    six distinct entries of ``J^T J`` and the three of ``J^T r`` stepped
+    together, and the solve is ``solve3_f32``."""
+    eye3 = torch.eye(3, dtype=X0.dtype, device=X0.device)
+    # J^T J's upper triangle (row-major) and J^T r: left and right factors
+    hi = torch.tensor([0, 0, 0, 1, 1, 2], device=X0.device)
+    hj = torch.tensor([0, 1, 2, 1, 2, 2], device=X0.device)
+    full = torch.tensor([0, 1, 2, 1, 3, 4, 2, 4, 5], device=X0.device)
+    # +0 starts a dot's chain; -0 makes J^T r's first step the plain
+    # product its matrix-vector kernel takes
+    zero = torch.tensor([0.0] * 6 + [-0.0] * 3, dtype=X0.dtype,
+                        device=X0.device)
+    X = X0
+    for _ in range(iters):
+        z1 = _safe_z(X[..., 2])
+        r1 = X[..., :2] / z1[..., None] - ray1[..., :2]
+        zi = 1.0 / z1
+        zeros = torch.zeros_like(zi)
+        J1 = torch.stack([
+            torch.stack([zi, zeros, -X[..., 0] * zi * zi], dim=-1),
+            torch.stack([zeros, zi, -X[..., 1] * zi * zi], dim=-1),
+        ], dim=-2)
+        X2 = contract_f32(X[..., None, :], R21) + t21
+        z2 = _safe_z(X2[..., 2])
+        r2 = X2[..., :2] / z2[..., None] - ray2[..., :2]
+        zi2 = 1.0 / z2
+        J2p = torch.stack([
+            torch.stack([zi2, zeros, -X2[..., 0] * zi2 * zi2], dim=-1),
+            torch.stack([zeros, zi2, -X2[..., 1] * zi2 * zi2], dim=-1),
+        ], dim=-2)
+        J2 = contract_f32(J2p[..., :, None, :], R21.transpose(-1, -2))
+        J = torch.cat([J1, J2], dim=-2)                    # (...,4,3)
+        r = torch.cat([r1, r2], dim=-1)                    # (...,4)
+        Jt = J.transpose(-1, -2)                           # (...,3,4)
+        lhs = torch.cat([Jt[..., hi, :], Jt], dim=-2)      # (...,9,4)
+        rhs = torch.cat([Jt[..., hj, :],
+                         r[..., None, :].expand(Jt.shape)], dim=-2)
+        Hg = contract_f32(lhs, rhs, zero)
+        H = Hg[..., full].unflatten(-1, (3, 3)) + 1e-9 * eye3
+        X = X - solve3_f32(H, Hg[..., 6:])
+    return X
+
+
+def _refine_library(X0: torch.Tensor, ray1: torch.Tensor,
+                    ray2: torch.Tensor, R21: torch.Tensor,
+                    t21: torch.Tensor, iters: int = 3) -> torch.Tensor:
+    """``triangulate_refine`` with library products and solve (MKL on the
+    host, cuBLAS and cuSOLVER on the card): each rounds in its own order."""
     eye3 = torch.eye(3, dtype=X0.dtype, device=X0.device)
     X = X0
     for _ in range(iters):
@@ -240,10 +309,24 @@ def triangulate_refine(X0: torch.Tensor, ray1: torch.Tensor,
 
 
 def triangulate(ray1: torch.Tensor, ray2: torch.Tensor, R21: torch.Tensor,
-                t21: torch.Tensor) -> torch.Tensor:
-    """Default triangulation: midpoint init + Gauss-Newton polish."""
-    X0 = triangulate_midpoint(ray1, ray2, R21, t21)
-    return triangulate_refine(X0, ray1, ray2, R21, t21)
+                t21: torch.Tensor, exact: bool = True) -> torch.Tensor:
+    """Default triangulation: midpoint init + Gauss-Newton polish.
+
+    ``exact`` starts and polishes in the reference's rounding
+    (``triangulate_midpoint(exact=True)``, ``triangulate_refine``), the
+    same bits on the host and the card. The fisheye stereo match needs it:
+    its rays are the reference's bit for bit, and a far point's depth
+    follows every rounding. The mapping step and the two-view init pass
+    ``exact=False`` (library products and solve, ``_refine_library``):
+    their relative poses come from the port's own float32 solves (the
+    essential matrix's SVD, bundle adjustment), which already differ from
+    the reference's in the last bits, so exact arithmetic cannot give the
+    reference's points there; it would only move which points land on a
+    gate's threshold, at several times the launches on every keyframe
+    (ROADMAP C14a)."""
+    X0 = triangulate_midpoint(ray1, ray2, R21, t21, exact)
+    refine = triangulate_refine if exact else _refine_library
+    return refine(X0, ray1, ray2, R21, t21)
 
 
 def _radtan(dist: torch.Tensor):

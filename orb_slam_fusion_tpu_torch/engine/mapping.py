@@ -43,7 +43,7 @@ def _triangulate_pair(pose_a: lie.SE3, pose_b: lie.SE3, rays_a, rays_b,
                                     min=1e-12)
     pair_valid = pair_valid & (sampson < 3.84 * s2b * inv_f * inv_f)
 
-    X_a = cameras.triangulate(rays_a, rays_b, T_ba.R, T_ba.t)
+    X_a = cameras.triangulate(rays_a, rays_b, T_ba.R, T_ba.t, exact=False)
     X_b = lie.se3_apply(T_ba, X_a)
     z_a, z_b = X_a[..., 2], X_b[..., 2]
 

@@ -86,7 +86,7 @@ def _decompose_essential(E: torch.Tensor):
 def _check_rt(R, t, r1, r2, mask, min_parallax_cos: float = 0.99995):
     """Cheirality + parallax scoring of one (R, t) (reference CheckRT).
     Returns (n_good, points, good mask, representative parallax cos)."""
-    X = cameras.triangulate(r1, r2, R, t)
+    X = cameras.triangulate(r1, r2, R, t, exact=False)
     X2 = torch.einsum("ij,nj->ni", R, X) + t
     z1 = X[..., 2]
     z2 = X2[..., 2]

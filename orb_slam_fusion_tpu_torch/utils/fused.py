@@ -1,11 +1,19 @@
-"""Sums of squares rounded as XLA:CPU compiles the reference's.
+"""float32 arithmetic rounded as the reference's compiled programs round it.
 
-Inside a jitted program XLA:CPU contracts ``jnp.sum(x ** 2, axis=-1)`` over
-a short axis into a chain of fused multiply-adds: ``fma(x1, x1, x0 * x0)``
-for two terms, one more fused step per further term. Eager PyTorch rounds
-each square and each add. Where such a sum meets a threshold (a pixel
-window, a chi-square gate), the two roundings can fall on either side of
-it, so the port's gates use ``sum_sq_f32`` (ROADMAP C11).
+Inside a jitted program XLA:CPU contracts a product and a sum into one
+fused multiply-add. ``jnp.sum(x ** 2, axis=-1)`` over a short axis becomes
+a chain of them, ``fma(x1, x1, x0 * x0)`` for two terms and one more fused
+step per further term (``sum_sq_f32``); a small dot (``jnp.einsum`` over an
+axis of 3 or 4, as in the two-view triangulation) becomes one chain per
+output, the first product fused onto +0 (``contract_f32``). Eager PyTorch
+rounds each product and each add. Where such a sum meets a threshold (a
+pixel window, a chi-square gate) or feeds an ill-conditioned solve, the two
+roundings part (ROADMAP C11, C14a).
+
+``solve3_f32`` restates the 3x3 solve those programs call (LAPACK's
+``sgetrf`` and two ``strsm`` through scipy's OpenBLAS) in the order of
+OpenBLAS's SkylakeX kernels. Everything here is elementwise IEEE float32
+and float64 arithmetic, so the CPU and the card give the same bits.
 """
 
 from __future__ import annotations
@@ -13,22 +21,109 @@ from __future__ import annotations
 import torch
 
 
-def sq_add_f32(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """float32 ``x * x + acc`` rounded once, as a fused multiply-add: the
-    exact square (float64 holds it) plus ``acc``, TwoSum for the error of
-    the float64 sum, which decides the one case float64 cannot, a sum
-    exactly halfway between two float32 values."""
-    a = x.double() * x.double()
+def fma_f32(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor
+            ) -> torch.Tensor:
+    """float32 ``x * y + acc`` rounded once, as a fused multiply-add.
+
+    The product is exact in float64, and so is the error ``e`` of the
+    float64 sum ``s`` (TwoSum). Rounding ``s`` to float32 is then right
+    except where ``s`` lies exactly halfway between two float32 values
+    and ``e`` points away from the one it rounded to: there the answer is
+    the other one, ``r + 2 (s - r)``. ``s`` is such a midpoint exactly
+    when that value is itself a float32. Broadcasts its arguments."""
+    a = x.double() * y.double()
     b = acc.double()
     s = a + b
     bb = s - a
     e = (a - (s - bb)) + (b - bb)
     r = s.float()
-    up = torch.nextafter(r, torch.full_like(r, float("inf")))
-    dn = torch.nextafter(r, torch.full_like(r, float("-inf")))
-    r = torch.where(((r.double() + up.double()) * 0.5 == s) & (e > 0), up, r)
-    return torch.where(((r.double() + dn.double()) * 0.5 == s) & (e < 0), dn,
-                       r)
+    r64 = r.double()
+    d = s - r64                           # exact: the bits r dropped
+    other = r64 + 2.0 * d
+    fix = (other.float().double() == other) & (d * e > 0)
+    return torch.where(fix, other.float(), r)
+
+
+def sq_add_f32(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32 ``x * x + acc`` rounded once (``fma_f32(x, x, acc)``)."""
+    return fma_f32(x, x, acc)
+
+
+def contract_f32(x: torch.Tensor, y: torch.Tensor,
+                 zero: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum(x * y, dim=-1)`` over a short last axis as XLA:CPU emits a
+    small dot: one chain of fused multiply-adds, element 0 first, from a
+    zero accumulator (+0 by default). ``x`` and ``y`` broadcast. The first
+    step, a product fused onto a zero, is the rounded product plus that
+    zero; a ``zero`` of -0 keeps a product's -0 (a column-major
+    matrix-vector kernel's first step is a plain multiply)."""
+    acc = x[..., 0] * y[..., 0]
+    acc = acc + (0.0 if zero is None else zero)
+    for k in range(1, x.shape[-1]):
+        acc = fma_f32(x[..., k], y[..., k], acc)
+    return acc
+
+
+def _swap(p: torch.Tensor, i: int) -> torch.Tensor:
+    """The row order (..., 3) that swaps row ``i`` with row ``p`` (>= i)."""
+    idx = torch.arange(3, device=p.device).expand(p.shape + (3,))
+    pe = p.unsqueeze(-1)
+    return torch.where(idx == i, pe, torch.where(idx == pe, i, idx))
+
+
+def solve3_f32(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.solve(A, b)`` for float32 3x3 systems (..., 3, 3) and
+    (..., 3), bit for bit as the reference computes it on the CPU:
+    OpenBLAS's ``sgetrf`` (its left-looking ``getf2``: partial pivoting on
+    the first largest magnitude, a column scaled by the pivot's float32
+    reciprocal, the updates of columns 1 and 2 as ``dot``/``gemv``
+    products each rounded before its subtraction, the last one a fused
+    chain), then ``strsm`` with a unit lower and an upper factor (the
+    diagonal's reciprocals, the lower solve's and the upper solve's
+    in-block updates fused). This is the order of OpenBLAS's SkylakeX
+    kernels, which scipy loads on an AVX-512 host; its Haswell kernels
+    round the gemv chain and both in-block updates apart (ROADMAP C14a).
+    A zero pivot scales nothing, and its reciprocal (inf) carries into
+    the solution as in LAPACK."""
+    one = torch.ones((), dtype=A.dtype, device=A.device)
+    p0 = _swap(torch.argmax(torch.abs(A[..., :, 0]), dim=-1), 0)
+    A = A.gather(-2, p0.unsqueeze(-1).expand(A.shape))
+    b = b.gather(-1, p0)
+    u00 = A[..., 0, 0]
+    r00 = one / u00
+    lc = torch.where((u00 != 0).unsqueeze(-1),
+                     A[..., 1:, 0] * r00.unsqueeze(-1), A[..., 1:, 0])
+    u01 = A[..., 0, 1]
+    t = A[..., 1:, 1] - lc * u01[..., None]              # column 1 rows 1-2
+    sw = torch.abs(t[..., 1]) > torch.abs(t[..., 0])     # second pivot
+    swp = sw.unsqueeze(-1)
+    lc = torch.where(swp, lc.flip(-1), lc)
+    t = torch.where(swp, t.flip(-1), t)
+    p1 = _swap(sw.long() + 1, 1)
+    c2 = A[..., :, 2].gather(-1, p1)
+    b = b.gather(-1, p1)
+    u11 = t[..., 0]
+    r11 = one / u11
+    l21 = torch.where(u11 != 0, t[..., 1] * r11, t[..., 1])
+    l10, l20 = lc[..., 0], lc[..., 1]
+    u02 = c2[..., 0]
+    u12 = c2[..., 1] - l10 * u02
+    # forward: unit lower; the block of rows 0-1 solves in place (fused),
+    # row 2 takes one gemm update (a fused chain, subtracted), which is
+    # the chain of u22 on the right-hand side: both in one step
+    y0 = b[..., 0]
+    y1 = fma_f32(-y0, l10, b[..., 1])
+    ch = fma_f32(l21.unsqueeze(-1), torch.stack([u12, y1], dim=-1),
+                 l20.unsqueeze(-1) * torch.stack([u02, y0], dim=-1))
+    u22 = c2[..., 2] - ch[..., 0]
+    y2 = b[..., 2] - ch[..., 1]
+    # backward: row 2 alone, then rows 0-1 after one rounded gemm update
+    x2 = y2 * (one / u22)
+    c = torch.stack([y0, y1], dim=-1) - torch.stack([u02, u12], dim=-1) \
+        * x2[..., None]
+    x1 = c[..., 1] * r11
+    x0 = fma_f32(-x1, u01, c[..., 0]) * r00
+    return torch.stack([x0, x1, x2], dim=-1)
 
 
 def within_fused(du: torch.Tensor, dv: torch.Tensor, r2: torch.Tensor
