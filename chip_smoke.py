@@ -122,7 +122,13 @@ Phases, each timed:
                golden's, IMU stages 1 and 2 (IMU init, VIBA1) on the
                golden's keyframes +-1, metric ATE from frame 90 (the
                sequence's second half) under 0.2 m and within 20 mm of
-               the golden's;
+               the golden's; then (phase viba1_solvers) one
+               ``inertial_init`` and one full ``visual_inertial_ba`` of the
+               monocular VIBA1 keyframe, from the reference's recorded
+               arguments (``tests/torch_goldens/viba1_solver_calls.npz``):
+               wall ms, device-busy ms, launches, and the largest
+               difference from the host's and the reference's results
+               (``VIBA1_ATOL``);
  14. loop_correct - the port's ``LoopCloser`` (flat 2,048-word vocabulary)
                on ``test_loop_closing_e2e.py``'s drifted 20-keyframe loop
                map (``tests/torch_goldens/loop_map_20kf.npz``: the JAX
@@ -1807,6 +1813,64 @@ def run_vio_staged_session(dev):
     return out
 
 
+# the recorded VIBA1 keyframe's solver calls: the card's result held to
+# the reference's (the init's scale and velocities, the full VI-BA's
+# keyframe positions); the full VI-BA there is flat (ROADMAP C14c)
+VIBA1_ATOL = {"init": 1e-4, "full": 1e-2}
+
+
+def check_viba1_solvers(dev):
+    """One ``inertial_init`` and one full ``visual_inertial_ba`` call of the
+    monocular VIBA1 keyframe on the card, from the arguments the reference
+    was given (``tests/torch_goldens/viba1_solver_calls.npz``, written by
+    ``tests/torch_viba1_replay.py --write-golden``): each call's wall ms
+    (one synchronized call after a warm-up), its device-busy ms and kernel
+    launches under the profiler, and its largest difference from the
+    host's result (the port on the CPU) and from the reference's."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch.solver import vi_ba
+    vp = _vio_problems()
+
+    golden = vp.load_viba1_golden()
+    out = {}
+    for tag in vp.VIBA1_CALLS:
+        fn = (vi_ba.inertial_init if tag == "init"
+              else vi_ba.visual_inertial_ba)
+        args, kw = vp.viba1_args(golden[tag], dev)
+        got, costs = vp.viba1_solution(fn(*args, **kw), tag)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        label = f"viba1 {tag}"
+        prof = profile_stages({label: lambda: fn(*args, **kw)}, warm=False,
+                              cpu_ops=False)[label]
+        host, _ = vp.viba1_solution(golden[tag]["port_cpu"], tag)
+        ref, _ = vp.viba1_solution(golden[tag]["result"], tag)
+        d_host = float(np.abs(got.astype(np.float64) - host).max())
+        d_ref = float(np.abs(got.astype(np.float64) - ref).max())
+        if not (np.isfinite(got).all() and d_ref <= VIBA1_ATOL[tag]):
+            raise RuntimeError(f"viba1 {tag}: {d_ref} from the reference")
+        out[tag] = dict(wall_ms=wall, device_busy_ms=prof["device_busy_ms"],
+                        launches=prof["kernels"], max_abs_diff_host=d_host,
+                        max_abs_diff_reference=d_ref,
+                        candidates=[float(c) if c == c else None
+                                    for c in costs])
+    print("viba1_solvers " + json.dumps(out), flush=True)
+    return out
+
+
+def _vio_problems():
+    """tests/torch_vio_problems.py (numpy and the port only)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_vio_problems
+    return torch_vio_problems
+
+
 def _euroc_rectification():
     """Maps and rectified intrinsics of the EuRoC rig (host float64)."""
     import numpy as np
@@ -3196,6 +3260,10 @@ def main():
     _phase("vio_staged_session", t0)
 
     t0 = time.perf_counter()
+    viba1 = check_viba1_solvers(dev)
+    _phase("viba1_solvers", t0)
+
+    t0 = time.perf_counter()
     loop = run_loop_correct(dev)
     _phase("loop_correct", t0)
 
@@ -3262,6 +3330,7 @@ def main():
         "stereo_vio_atlas_session": vio_atlas["ok_frames"],
         "system_session": system["ok_frames"],
         "mesh_session": mesh["ok_frames"]}
+    report["viba1_solvers"] = viba1
     report["stereo_session_calls"] = stereo["match_calls"]
     report["fisheye_stereo_calls"] = fisheye["fisheye_stereo"]["match_calls"]
     report["stereo_vio_session_calls"] = stereo_vio["match_calls"]

@@ -368,8 +368,15 @@ def _flat_inv3x3(H9: torch.Tensor) -> torch.Tensor:
 
 def solve_pos(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """x = H^-1 g for symmetric positive definite H (batched; g a vector or
-    a matrix per H); NaN where the Cholesky factorization fails, as the
-    reference's ``solve(assume_a="pos")`` and ``cho_solve`` give."""
+    a matrix per H), factoring the lower triangle of H; NaN where the
+    Cholesky factorization fails, as the reference's solves give. Of this
+    function's callers, only the PCG preconditioner's blocks
+    (``_lm_step_cg``) have a reference that reads the lower triangle
+    (``cho_factor(lower=True)``). Every other reference call is
+    ``jax.scipy.linalg.solve(assume_a="pos")``, whose ``cho_factor(lower=
+    False)`` factors the transposed matrix and so reads the upper
+    triangle: ``vi_ba._solve_upper`` follows it there; the other callers
+    keep the lower one."""
     L, info = torch.linalg.cholesky_ex(H)
     vec = g.dim() == H.dim() - 1
     x = torch.cholesky_solve(g.unsqueeze(-1) if vec else g, L)

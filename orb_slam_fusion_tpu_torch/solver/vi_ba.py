@@ -15,8 +15,11 @@ Counterpart of ``orb_slam_fusion_tpu/solver/vi_ba.py``:
 The inertial Jacobians come from ``torch.func.jacfwd`` of the residuals
 (written without in-place writes), one forward pass per tangent direction
 batched over every factor, as the reference takes them from
-``jax.jacfwd``. Its positive-definite solves become a Cholesky
-factorization and solve; a failed factorization gives NaN, as the
+``jax.jacfwd``. The inertial normal system, the inertial init's normal
+equations and both solvers' damping and scaling are summed in the order
+of the reference's compiled programs (``utils/fused.py``), and their
+positive-definite solves factor the upper triangle, as the reference's
+do (``_solve_upper``); a failed factorization gives NaN, as the
 reference's does, so the LM accept test rejects the step. Every decision
 stays on the device: a solve makes no host round trip.
 """
@@ -34,6 +37,8 @@ from ..imu.preintegration import (ImuBias, ImuCalib, Preintegrated,
                                   gravity_vec)
 from .ba import BAProblem, _eval_factors, inv3x3, solve_pos
 from .robust import huber_rho, huber_weight
+from ..utils.fused import (contract_f32, fma_f32, gemm4_f32, gemv_f32,
+                           loop_dot_f32)
 
 
 class VIState(NamedTuple):
@@ -81,18 +86,24 @@ def _rows(state: VIState, idx):
             state.bg[idx], state.ba[idx])
 
 
+def _solve_upper(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``solve_pos`` on the transposed system, so the Cholesky
+    factorization reads the upper triangle of H, as the reference's
+    ``jax.scipy.linalg.solve(H, g, assume_a="pos")`` does: its
+    ``cho_factor(lower=False)`` factors ``H.mT``. A float32 H summed in
+    the reference's order is not symmetric to the bit."""
+    return solve_pos(H.mT, g)
+
+
 def _one_hot(idx: torch.Tensor, K: int, dtype) -> torch.Tensor:
     return (idx.long()[:, None] == torch.arange(
         K, device=idx.device)[None, :]).to(dtype)
 
 
-def inertial_system(state: VIState, ifac: InertialFactorBatch,
-                    calib: ImuCalib, g_w, bias_rw_info_g: float,
-                    bias_rw_info_a: float, bias_prior_info_g: float,
-                    bias_prior_info_a: float):
-    """The inertial, bias-walk and bias-prior contributions to the dense
-    normal system: H (K, 15, K, 15), g (K, 15)."""
-    K = state.poses.t.shape[0]
+def _inertial_blocks(state: VIState, ifac: InertialFactorBatch,
+                     calib: ImuCalib, g_w):
+    """Each preintegration factor's residual r (P, 9) and its Jacobians
+    with respect to the tangents of keyframes i and j, Ji, Jj (P, 9, 15)."""
     P = ifac.i.shape[0]
     dtype, dev = state.poses.t.dtype, state.poses.t.device
     D = 15
@@ -113,13 +124,63 @@ def inertial_system(state: VIState, ifac: InertialFactorBatch,
     r_in = edge_res(z, z)
     Ji = jacfwd(lambda d: edge_res(d.expand(P, D), z))(z1)      # (P,9,15)
     Jj = jacfwd(lambda d: edge_res(z, d.expand(P, D)))(z1)
+    return r_in, Ji, Jj
+
+
+def _weighted_gram(info: torch.Tensor, A: torch.Tensor, B: torch.Tensor
+                   ) -> torch.Tensor:
+    """(P, n, m) blocks ``A^T info B`` of (P, 9, 9) informations and
+    (P, 9, n), (P, 9, m) Jacobians, as XLA:CPU computes ``einsum("pri,prs,
+    psj->pij")``: ``info^T A`` first, then that times ``B``, each entry a
+    fused chain over the contracted axis in order."""
+    T = contract_f32(info.transpose(1, 2)[:, :, None, :],
+                     A.transpose(1, 2)[:, None, :, :])         # (P,9,n)
+    return contract_f32(T.transpose(1, 2)[:, :, None, :],
+                        B.transpose(1, 2)[:, None, :, :])
+
+
+def inertial_normal_equations(state: VIState, ifac: InertialFactorBatch,
+                              r_in, Ji, Jj, bias_rw_info_g: float,
+                              bias_rw_info_a: float,
+                              bias_prior_info_g: float,
+                              bias_prior_info_a: float):
+    """The dense normal system H (K, 15, K, 15), g (K, 15) of the factors'
+    residuals and Jacobians, the bias walk between their keyframes and the
+    bias prior on keyframe 0, summed as the reference's compiled program
+    sums them: the per-factor products in XLA:CPU's order (``gemv_f32``,
+    ``_weighted_gram``), then scattered by keyframe index in the
+    reference's order (Hii, Hjj, Hij, Hij^T, +Hb, +Hb, -Hb, -Hb, the
+    prior; g likewise)."""
+    K = state.poses.t.shape[0]
+    P = ifac.i.shape[0]
+    dtype, dev = state.poses.t.dtype, state.poses.t.device
+    D = 15
+    ii, jj = ifac.i.long(), ifac.j.long()
     w_in = ifac.valid.to(dtype)
     info = ifac.info * w_in[:, None, None]
-    Hii = torch.einsum("pri,prs,psj->pij", Ji, info, Ji)
-    Hjj = torch.einsum("pri,prs,psj->pij", Jj, info, Jj)
-    Hij = torch.einsum("pri,prs,psj->pij", Ji, info, Jj)
-    gi = torch.einsum("pri,prs,ps->pi", Ji, info, r_in)
-    gj = torch.einsum("pri,prs,ps->pi", Jj, info, r_in)
+    v = gemv_f32(info, r_in)                                   # (P,9)
+    gi = gemv_f32(Ji.transpose(1, 2), v)
+    gj = gemv_f32(Jj.transpose(1, 2), v)
+    Hii = _weighted_gram(info, Ji, Ji)
+    Hij = _weighted_gram(info, Ji, Jj)
+    Hjj = _weighted_gram(info, Jj, Jj)
+
+    ar = torch.arange(D, device=dev)
+    H = torch.zeros(K, D, K, D, dtype=dtype, device=dev)
+
+    def add_blocks(a, b, blocks, rows=ar):
+        n = rows.shape[0]
+        H.index_put_((a[:, None, None], rows[None, :, None],
+                      b[:, None, None], rows[None, None, :]),
+                     blocks.reshape(-1, n, n), accumulate=True)
+
+    add_blocks(ii, ii, Hii)
+    add_blocks(jj, jj, Hjj)
+    add_blocks(ii, jj, Hij)
+    add_blocks(jj, ii, Hij.transpose(1, 2))
+    g = torch.zeros(K, D, dtype=dtype, device=dev)
+    g.index_put_((ii,), gi, accumulate=True)
+    g.index_put_((jj,), gj, accumulate=True)
 
     # bias random-walk edges: +Hb on (i,i), (j,j), -Hb on (i,j), (j,i)
     rw = torch.tensor([bias_rw_info_g] * 3 + [bias_rw_info_a] * 3,
@@ -127,24 +188,34 @@ def inertial_system(state: VIState, ifac: InertialFactorBatch,
     db = torch.cat([state.bg[jj] - state.bg[ii],
                     state.ba[jj] - state.ba[ii]], dim=-1)       # (P,6)
     gb = rw[None, :] * db * w_in[:, None]
-    Hb = torch.zeros(P, D, D, dtype=dtype, device=dev)
-    Hb[:, 9:, 9:] = torch.diag(rw)[None] * w_in[:, None, None]
-    gbf = torch.cat([torch.zeros(P, 9, dtype=dtype, device=dev), gb], 1)
+    Hb = torch.diag(rw)[None] * w_in[:, None, None]             # (P,6,6)
+    bias = ar[9:]
+    add_blocks(ii, ii, Hb, bias)
+    add_blocks(jj, jj, Hb, bias)
+    add_blocks(ii, jj, -Hb, bias)
+    add_blocks(jj, ii, -Hb, bias)
+    g.index_put_((ii[:, None], bias[None, :]), -gb, accumulate=True)
+    g.index_put_((jj[:, None], bias[None, :]), gb, accumulate=True)
 
-    Ei, Ej = _one_hot(ii, K, dtype), _one_hot(jj, K, dtype)
-    H = (torch.einsum("pk,pq,pxy->kqxy", Ei, Ei, Hii + Hb)
-         + torch.einsum("pk,pq,pxy->kqxy", Ej, Ej, Hjj + Hb)
-         + torch.einsum("pk,pq,pxy->kqxy", Ei, Ej, Hij - Hb)
-         + torch.einsum("pk,pq,pxy->kqxy", Ej, Ei,
-                        Hij.transpose(1, 2) - Hb))             # (K,K,D,D)
-    g = Ei.T @ (gi - gbf) + Ej.T @ (gj + gbf)                  # (K,D)
-
-    # bias prior on the first keyframe
+    # bias prior on the first keyframe: its diagonal, and one fused step
     prior = torch.tensor([bias_prior_info_g] * 3 + [bias_prior_info_a] * 3,
                          dtype=dtype, device=dev)
-    H[0, 0, 9:, 9:] += torch.diag(prior)
-    g[0, 9:] += prior * torch.cat([state.bg[0], state.ba[0]])
-    return H.permute(0, 2, 1, 3), g
+    H[0, bias, 0, bias] += prior
+    g[0, 9:] = fma_f32(prior, torch.cat([state.bg[0], state.ba[0]]),
+                       g[0, 9:])
+    return H, g
+
+
+def inertial_system(state: VIState, ifac: InertialFactorBatch,
+                    calib: ImuCalib, g_w, bias_rw_info_g: float,
+                    bias_rw_info_a: float, bias_prior_info_g: float,
+                    bias_prior_info_a: float):
+    """The inertial, bias-walk and bias-prior contributions to the dense
+    normal system: H (K, 15, K, 15), g (K, 15)."""
+    r_in, Ji, Jj = _inertial_blocks(state, ifac, calib, g_w)
+    return inertial_normal_equations(
+        state, ifac, r_in, Ji, Jj, bias_rw_info_g, bias_rw_info_a,
+        bias_prior_info_g, bias_prior_info_a)
 
 
 def inertial_cost_terms(state: VIState, ifac: InertialFactorBatch,
@@ -266,7 +337,9 @@ def visual_inertial_ba(
         M = points.shape[0]
         E2 = E.permute(1, 2, 0, 3).reshape(K * 6, M * 3)
         W2 = W.permute(1, 2, 0, 3).reshape(K * 6, M * 3)
-        S = torch.block_diag(*Hpp) - E2 @ W2.T                   # (6K,6K)
+        S = -(E2 @ W2.T).view(K, 6, K, 6)                        # (K,6,K,6)
+        kk = torch.arange(K, device=dev)
+        S[kk, :, kk, :] += Hpp
         mp = prob.mp_idx.long()
         corr = torch.einsum("fik,fkl,fl->fi", Hpl_f, Hinv[mp], gl[mp])
         g_pose = gp - P_f.T @ corr
@@ -276,22 +349,26 @@ def visual_inertial_ba(
             s, ifac, calib, g_w, bias_rw_info_g, bias_rw_info_a,
             bias_prior_info_g, bias_prior_info_a)
         H = torch.zeros(K, D, K, D, dtype=dtype, device=dev)
-        H[:, :6, :, :6] = S.view(K, 6, K, 6)
+        H[:, :6, :, :6] = S
         H = (H + H_in).reshape(K * D, K * D)
         g = torch.zeros(K, D, dtype=dtype, device=dev)
         g[:, :6] = g_pose
         g = (g + g_in).reshape(-1)
 
         # ---- fixed dims, damping, equilibrated solve ---------------------
+        # as the reference's compiled program: the damping lam * H_ii +
+        # 1e-7 one fused step, the two scalings one division by d_i d_j
         Hm = torch.where(fx[:, None] | fx[None, :], zero, H)
         Hm = Hm + torch.diag(fx.to(dtype))
         g = torch.where(fx, zero, g)
-        Hd = Hm + torch.diag(lam * torch.diagonal(Hm) + 1e-7)
+        diag = torch.arange(K * D, device=dev)
+        Hm[diag, diag] += fma_f32(lam, torch.diagonal(Hm),
+                                  torch.full_like(lam, 1e-7))
         # Jacobi equilibration: IMU information (~1e8) next to visual
         # blocks (~1e2) is beyond a float32 factorization unscaled
-        d = torch.sqrt(torch.clamp(torch.diagonal(Hd), min=1e-12))
-        Hs = Hd / d[:, None] / d[None, :]
-        dx = -solve_pos(Hs, g / d) / d
+        d = torch.sqrt(torch.clamp(torch.diagonal(Hm), min=1e-12))
+        Hs = Hm / (d[:, None] * d[None, :])
+        dx = -_solve_upper(Hs, g / d) / d
         dx = torch.where(fx, zero, dx).view(K, D)
         new_s = perturb(s, dx)
 
@@ -324,6 +401,29 @@ def visual_inertial_ba(
 # ---------------------------------------------------------------------------
 # IMU initialization
 # ---------------------------------------------------------------------------
+
+
+def _init_normal_equations(Jb, r, info, prior_vec, theta, lam):
+    """The damped normal equations of one ``inertial_init`` iteration as
+    the reference's compiled loop sums them: ``info^T J`` per factor
+    (fused chains), ``J^T (info J)`` over every factor row (Eigen's
+    four chains, ``gemm4_f32``), ``J^T (info r)`` (a tiled gemv, then a
+    dot fused into a loop), the bias priors added on the diagonal and
+    fused onto the gradient, the damping ``lam * H_ii + 1e-7`` one fused
+    step."""
+    P, _, n = Jb.shape
+    T = contract_f32(info.transpose(1, 2)[:, :, None, :],
+                     Jb.transpose(1, 2)[:, None, :, :])          # (P,9,n)
+    H = gemm4_f32(T.reshape(P * 9, n).T, Jb.reshape(P * 9, n).T)
+    gvec = loop_dot_f32(Jb.reshape(P * 9, n).T,
+                        gemv_f32(info, r).reshape(1, P * 9))
+    prior = torch.arange(3, 9, device=H.device)
+    H[prior, prior] += prior_vec
+    gvec[3:9] = fma_f32(prior_vec, theta[3:9], gvec[3:9])
+    diag = torch.arange(n, device=H.device)
+    H[diag, diag] += fma_f32(lam, torch.diagonal(H),
+                             torch.full_like(lam, 1e-7))
+    return H, gvec
 
 
 def inertial_init(
@@ -376,22 +476,13 @@ def inertial_init(
 
     theta = torch.zeros(n_par, dtype=dtype, device=dev)
     lam = torch.full((), 1e-3, dtype=dtype, device=dev)
-    prior_H = torch.diag(torch.cat([torch.zeros(3, dtype=dtype, device=dev),
-                                    prior_vec,
-                                    torch.zeros(n_par - 9, dtype=dtype,
-                                                device=dev)]))
     costs = []
     for _ in range(iters):
         r = residuals(theta)
         Jb = jacfwd(residuals)(theta)                          # (P,9,n)
-        H = torch.einsum("pri,prs,psj->ij", Jb, ifac.info, Jb) + prior_H
-        gvec = torch.einsum("pri,prs,ps->i", Jb, ifac.info, r)
-        gvec = gvec + torch.cat([torch.zeros(3, dtype=dtype, device=dev),
-                                 prior_vec * theta[3:9],
-                                 torch.zeros(n_par - 9, dtype=dtype,
-                                             device=dev)])
-        H = H + torch.diag(lam * torch.diagonal(H) + 1e-7)
-        dx = -solve_pos(H, gvec)
+        H, gvec = _init_normal_equations(Jb, r, ifac.info, prior_vec,
+                                         theta, lam)
+        dx = -_solve_upper(H, gvec)
         c0 = cost(theta)
         c1 = cost(theta + dx)
         ok = (c1 < c0) & torch.isfinite(dx).all()

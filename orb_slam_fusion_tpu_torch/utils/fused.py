@@ -10,6 +10,16 @@ rounds each product and each add. Where such a sum meets a threshold (a
 pixel window, a chi-square gate) or feeds an ill-conditioned solve, the two
 roundings part (ROADMAP C11, C14a).
 
+A row-major matrix-vector product that XLA:CPU emits as its tiled gemv
+(``gemv_f32``) sums each row in vector lanes of eight, then across the
+lanes pairwise, in one pattern for rows in whole tiles of eight and in
+another for the rows left over.
+
+A dot that XLA:CPU fuses into a loop (``loop_dot_f32``) is one reduction
+that LLVM vectorizes; a larger product it hands to Eigen, whose AVX-512
+kernel keeps four interleaved chains over the contracted axis
+(``gemm4_f32``).
+
 ``solve3_f32`` restates the 3x3 solve those programs call (LAPACK's
 ``sgetrf`` and two ``strsm`` through scipy's OpenBLAS) in the order of
 OpenBLAS's SkylakeX kernels. Everything here is elementwise IEEE float32
@@ -30,7 +40,11 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor
     except where ``s`` lies exactly halfway between two float32 values
     and ``e`` points away from the one it rounded to: there the answer is
     the other one, ``r + 2 (s - r)``. ``s`` is such a midpoint exactly
-    when that value is itself a float32. Broadcasts its arguments."""
+    when that value is itself a float32. Broadcasts its arguments. A
+    float64 argument (a solver run in double precision for comparison)
+    gets the plain ``x * y + acc``."""
+    if torch.float64 in (x.dtype, y.dtype, acc.dtype):
+        return x * y + acc
     a = x.double() * y.double()
     b = acc.double()
     s = a + b
@@ -62,6 +76,105 @@ def contract_f32(x: torch.Tensor, y: torch.Tensor,
     for k in range(1, x.shape[-1]):
         acc = fma_f32(x[..., k], y[..., k], acc)
     return acc
+
+
+GEMV_TILE = 8    # rows per tile and floats per vector of that gemv
+
+
+def _halve(lanes: torch.Tensor) -> torch.Tensor:
+    """The lanes of a vector (..., 8) added in halves, as LLVM reduces a
+    vector: (0+4)+(2+6) and (1+5)+(3+7), then the two."""
+    while lanes.shape[-1] > 1:
+        n = lanes.shape[-1] // 2
+        lanes = lanes[..., :n] + lanes[..., n:]
+    return lanes[..., 0]
+
+
+def gemv_f32(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for float32 (..., m, k) and (..., k) as XLA:CPU's tiled
+    row-major gemv computes it (``lax.dot_general`` of a batched matrix and
+    vector on the CPU). Each row keeps eight lanes, lane ``l`` a chain of
+    fused steps over the columns ``l, l + 8, ...`` of the whole vectors;
+    the lanes of a row in a whole tile of eight rows are then added in
+    adjacent pairs, (0+1)+(2+3) and (4+5)+(6+7), those of a row left over
+    in halves, (0+4)+(2+6) and (1+5)+(3+7); the columns past the last
+    whole vector make a chain of their own, added last."""
+    m, k = A.shape[-2:]
+    w = GEMV_TILE
+    kv = k // w * w
+    out = None
+    if kv:
+        lanes = A[..., :w] * x[..., None, :w]
+        for c in range(w, kv, w):
+            lanes = fma_f32(A[..., c:c + w], x[..., None, c:c + w], lanes)
+        pairs = lanes
+        while pairs.shape[-1] > 1:
+            pairs = pairs[..., 0::2] + pairs[..., 1::2]
+        whole = torch.arange(m, device=A.device) < m // w * w
+        out = torch.where(whole, pairs[..., 0], _halve(lanes))
+    if kv < k:
+        rest = contract_f32(A[..., kv:], x[..., None, kv:])
+        out = rest if out is None else out + rest
+    return out
+
+
+def loop_dot_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``sum(x * y, dim=-1)`` as XLA:CPU computes a dot fused into a loop
+    (``lax.dot_general`` inside a fusion): LLVM vectorizes the reduction
+    into two accumulators of eight lanes over the whole blocks of sixteen
+    elements (fused chains), adds them and halves the lanes; the next
+    eight elements, if whole, make one more vector whose lane 0 carries
+    that sum (fused onto it), halved in turn; the rest is a fused chain
+    onto the total. This is the loop of the inertial init's gradient at the
+    sessions' sizes (252 elements); a loop short enough for LLVM to unroll
+    (81 elements) is summed in another order, not restated here."""
+    k = x.shape[-1]
+    w = GEMV_TILE
+    main = k // (2 * w) * (2 * w)
+    out = None
+    if main:
+        a0 = x[..., :w] * y[..., :w]
+        a1 = x[..., w:2 * w] * y[..., w:2 * w]
+        for c in range(2 * w, main, 2 * w):
+            a0 = fma_f32(x[..., c:c + w], y[..., c:c + w], a0)
+            a1 = fma_f32(x[..., c + w:c + 2 * w], y[..., c + w:c + 2 * w],
+                         a1)
+        out = _halve(a1 + a0)
+    c = main
+    if k - c >= w:
+        lanes = x[..., c:c + w] * y[..., c:c + w]
+        if out is not None:
+            lanes = torch.cat([fma_f32(x[..., c], y[..., c], out)[..., None],
+                               lanes[..., 1:]], dim=-1)
+        out = _halve(lanes)
+        c += w
+    for c in range(c, k):
+        out = x[..., c] * y[..., c] if out is None else \
+            fma_f32(x[..., c], y[..., c], out)
+    return out
+
+
+def gemm4_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y.T`` for float32 (n, k) and (m, k), as the Eigen contraction
+    that XLA:CPU calls for a larger dot computes it on an AVX-512 host:
+    each entry keeps four chains of fused steps over the contracted axis,
+    chain ``c`` over the elements ``c, c + 4, ...``, then adds them as
+    (0+1)+(2+3). The chains advance four elements a step, one batched
+    operation for every entry. This is Eigen's order for the inertial
+    init's 99 x 252 x 99 product of the sessions; a smaller product (39 x
+    81 x 39) and the full VI-BA's deep ones (16,384 and 18,432 terms, which
+    Eigen splits among its threads) are summed in other orders."""
+    k = x.shape[-1]
+    xs, ys = x[:, None, :], y[None, :, :]
+    acc = xs[..., :4] * ys[..., :4]
+    for c in range(4, k, 4):
+        n = min(4, k - c)
+        step = fma_f32(xs[..., c:c + n], ys[..., c:c + n], acc[..., :n])
+        acc = step if n == 4 else torch.cat([step, acc[..., n:]], dim=-1)
+    if acc.shape[-1] < 4:
+        acc = torch.cat([acc, torch.zeros_like(acc[..., :4 - acc.shape[-1]])],
+                        dim=-1)
+    return (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
 
 
 def _swap(p: torch.Tensor, i: int) -> torch.Tensor:

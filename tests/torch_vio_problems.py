@@ -1,6 +1,9 @@
 """Seeded visual-inertial solver problems (numpy and the port only, no
 JAX): the CPU parity tests hand them to both packages, the card tests to
-the port on the CPU and on the card. No tests here."""
+the port on the CPU and on the card. No tests here. Also the loader of
+the VIBA1 keyframe's recorded solver calls."""
+
+import pathlib
 
 import numpy as np
 import torch
@@ -99,3 +102,107 @@ def port_problem(d, stereo, device):
     zK = torch.zeros(K, 3, device=device)
     state = tvi.VIState(poses, t(d["vel"]), zK, zK.clone())
     return state, prob, ifac, calib
+
+
+# ---------------------------------------------------------------------------
+# the VIBA1 keyframe's solver calls (torch_goldens/viba1_solver_calls.npz)
+# ---------------------------------------------------------------------------
+
+VIBA1_GOLDEN = (pathlib.Path(__file__).resolve().parent / "torch_goldens"
+                / "viba1_solver_calls.npz")
+VIBA1_CALLS = ("init", "full")     # inertial_init, then the full VI-BA
+
+
+def flatten(tree, prefix=""):
+    """Nested dicts and lists of arrays and scalars -> {"a/0/b": array};
+    None leaves are left out."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}/"))
+    elif tree is not None:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten(flat):
+    """The inverse of ``flatten``: lists where every key is an index."""
+    root = {}
+    for key, v in flat.items():
+        node, parts = root, key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+
+    def fix(n):
+        if not isinstance(n, dict):
+            return n
+        n = {k: fix(v) for k, v in n.items()}
+        if n and all(k.isdigit() for k in n):
+            return [n[str(i)] for i in range(len(n))]
+        return n
+    return fix(root)
+
+
+def load_viba1_golden(path=VIBA1_GOLDEN):
+    """{"init"|"full": {"args": [args, kwargs], "result": ...}} of the
+    reference's VIBA1 keyframe, as ``torch_viba1_replay.py --write-golden``
+    wrote them."""
+    with np.load(path) as z:
+        return unflatten({k: z[k] for k in z.files})
+
+
+def _port_tree(cls, d, device):
+    """A port NamedTuple from a recorded dict (fields by name; missing
+    fields keep their defaults)."""
+    nested = {"poses": tlie.SE3, "pre": tp.Preintegrated,
+              "bias0": tp.ImuBias}
+    kw = {}
+    for f in cls._fields:
+        if f not in d:
+            continue
+        v = d[f]
+        if isinstance(v, dict):
+            kw[f] = _port_tree(nested[f], v, device)
+        elif v.dtype.kind in "fbiu":
+            kw[f] = torch.from_numpy(np.array(v)).to(device)
+        else:
+            kw[f] = v.item()
+    return cls(**kw)
+
+
+def viba1_args(entry, device):
+    """The port's (args, kwargs) of a recorded call (``init`` or
+    ``full``) on ``device``."""
+    args, kw = entry["args"]
+    kw = {k: (torch.from_numpy(np.array(v)).to(device)
+              if v.dtype == bool and v.ndim else v.item())
+          for k, v in kw.items()}
+    if "fixed_pose" in kw:
+        state, prob, ifac, calib = args
+        return (_port_tree(tvi.VIState, state, device),
+                _port_tree(tba.BAProblem, prob, device),
+                _port_tree(tvi.InertialFactorBatch, ifac, device),
+                _port_tree(tp.ImuCalib, calib, device)), kw
+    poses, ifac, calib = args
+    return (_port_tree(tlie.SE3, poses, device),
+            _port_tree(tvi.InertialFactorBatch, ifac, device),
+            _port_tree(tp.ImuCalib, calib, device)), kw
+
+
+def viba1_solution(result, name):
+    """The compared part of a solver's result (numpy): an init's scale and
+    velocities, a VI-BA's keyframe positions; and its candidate costs."""
+    def a(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+    if name == "init":
+        return (np.concatenate([a(result[0]).reshape(1),
+                                a(result[3]).reshape(-1)]), a(result[4]))
+    poses = result[0]["poses"] if isinstance(result[0], dict) \
+        else result[0].poses
+    t = poses["t"] if isinstance(poses, dict) else poses.t
+    return a(t), a(result[2])
