@@ -2061,7 +2061,49 @@ def run_loop_correct(dev):
     out["stage_ms"] = {k: [STAGES.count[k], STAGES.total[k] * 1e3
                            / STAGES.count[k]] for k in STAGES.total}
     print("loop_correct " + json.dumps(out), flush=True)
+    out["pcg_linearization"] = check_pcg_linearization(dev)
     out["global_ba"] = run_global_ba(dev)
+    return out
+
+
+def check_pcg_linearization(dev):
+    """ROADMAP C14b on the card: from the reference's states in the golden
+    that ``tests/torch_pcg_replay.py --write-golden`` writes from the host
+    (test_torch_ba_cg.py's problem, 16 keyframes x 96 factors, 256
+    landmarks), the PCG step's restated linearization (factors, weights,
+    landmark and pose systems) and its ``cg_iters=0`` landmark step on the
+    card, held bit for bit to the host's. Also one full step's (64 CG
+    iterations) launches, device time and wall time."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import lie
+    from orb_slam_fusion_tpu_torch.solver import ba
+
+    fx = _fixtures()
+    g = fx.load_pcg_golden()
+    prob = fx.pcg_problem(g, dev)
+    got = fx.pcg_port_sums(prob, g, dev)
+    differ = {k: int((v.view(np.int32) != g[k].view(np.int32)).sum())
+              for k, v in got.items()}
+    if any(differ.values()):
+        raise RuntimeError(f"PCG linearization: values that differ between "
+                           f"the card and the host {differ}")
+    it = fx.PCG_GOLDEN_ITERS[0]
+    state = [torch.from_numpy(np.array(g[f"{k}_{it}"])).to(dev)
+             for k in ("R", "t", "X", "lam")]
+    stride = json.loads(str(g["shape"]))["nf"]
+
+    def step():
+        return ba._lm_step_cg(lie.SE3(state[0], state[1]), state[2], state[3],
+                              torch.ones_like(prob.valid), prob, "pinhole",
+                              float(g["chi2"]), True, stride)
+    prof = profile_stages({"pcg step": step}, cpu_ops=False)["pcg step"]
+    out = dict(values=int(sum(v.size for v in got.values())),
+               bits_equal_to_host=True, step_launches=prof["kernels"],
+               step_device_busy_ms=prof["device_busy_ms"],
+               step_wall_ms=prof["wall_ms"])
+    print("pcg_linearization " + json.dumps(out) + "; the card's sums equal "
+          "the host's bit for bit", flush=True)
     return out
 
 

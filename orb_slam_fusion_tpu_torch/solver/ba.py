@@ -36,6 +36,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from .. import cameras, lie
+from ..utils.fused import contract_f32, fma_f32, rsqrt_f32, window_sum_f32
 from .robust import CHI2_2D, CHI2_3D, huber_rho, huber_weight
 
 
@@ -385,6 +386,202 @@ def solve_pos(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, x, torch.full_like(x, float("nan")))
 
 
+# The PCG step below sums its float32 linearization in the order of the
+# reference's compiled ``lm_chunk`` (XLA:CPU, read off its optimized HLO,
+# LLVM IR and object code; ROADMAP C14b): each small dot a chain of fused
+# multiply-adds from +0 (``contract_f32``), the column-major matrix-vector
+# products from their first plain product (a -0 start), the landmark
+# slots and the pose segments summed in order (``window_sum_f32``), the
+# Huber weight through XLA's ``rsqrt`` (``rsqrt_f32``), the 3x3 inverses as
+# ``_inv3x3_fused``. These functions serve the PCG step only: the dense
+# ``_lm_step``, the VI-BA and the sharded BA keep their own order.
+
+
+def _chain(x: torch.Tensor, y: torch.Tensor, plain_first: bool = False
+           ) -> torch.Tensor:
+    """``sum(x * y, -1)`` as one chain of fused steps: from +0, or from the
+    first plain product (a column-major gemv's start)."""
+    zero = torch.full((), -0.0 if plain_first else 0.0, dtype=x.dtype,
+                      device=x.device)
+    return contract_f32(x, y, zero)
+
+
+def _slot_sum(G: torch.Tensor, vmf: torch.Tensor,
+              from_zero: torch.Tensor) -> torch.Tensor:
+    """``einsum("mo,mo...->m...", vmf, G)`` for a 0/1 ``vmf``, as the
+    reference's column-major gemv sums the slots: in slot order, each
+    product exact, from the first product (+0 added where ``from_zero``,
+    the outputs in the kernel's whole vectors of eight)."""
+    p = vmf.reshape(vmf.shape + (1,) * (G.dim() - 2)) * G
+    acc = torch.where(from_zero, p[:, 0] + 0.0, p[:, 0])
+    for o in range(1, G.shape[1]):
+        acc = acc + p[:, o]
+    return acc
+
+
+def _inv3x3_fused(A: torch.Tensor) -> torch.Tensor:
+    """``inv3x3`` as the reference's compiled PCG step rounds it: each
+    cofactor ``fma(x, y, -(z w))``, the determinant ``fma(c, A31, fma(a,
+    A11, b A21))``, then the adjugate over it. Bit for bit at the test's
+    256 landmarks; at 32,768 the reference's program splits the landmarks
+    among three workgroups, and the first two compute the (1,0) cofactor
+    as ``fma(-d, i, f g)`` (not restated, ROADMAP C14b). The VI-BA's
+    compile rounds otherwise at 8,192 points (C14c), so ``inv3x3`` keeps
+    its rounding for its other callers."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    st = lambda *v: torch.stack(v, dim=-1)  # noqa: E731
+    # the nine cofactors in row-major order of the adjugate
+    C = fma_f32(st(e, c, b, f, a, c, d, b, a), st(i, h, f, g, i, d, h, g, e),
+                -(st(f, b, c, d, c, a, e, a, b)
+                  * st(h, i, e, i, g, f, g, h, d)))
+    det = fma_f32(c, C[..., 6], fma_f32(a, C[..., 0], b * C[..., 3]))
+    det = torch.where(torch.abs(det) < 1e-18, torch.full_like(det, 1e-18),
+                      det)
+    return (C / det[..., None]).reshape(A.shape)
+
+
+def _pcg_factors(poses: lie.SE3, points: torch.Tensor, prob: BAProblem,
+                 cam_model: str):
+    """``_eval_factors`` rounded as the compiled PCG step rounds it, for
+    the pinhole camera: ``pc`` a chain over ``R X`` plus ``t``, the pixel
+    ``fma(fx x, 1/z, cx)``, ``J_pose`` and ``J_point`` chains over the
+    projection Jacobian's rows. Another camera model keeps
+    ``_eval_factors`` (not restated)."""
+    if cam_model != cameras.PINHOLE:
+        return _eval_factors(poses, points, prob, cam_model)
+    kf = prob.kf_idx.long()
+    Rk = poses.R[kf]
+    pc = _chain(Rk, points[prob.mp_idx.long()][:, None, :]) + poses.t[kf]
+    fx, fy, cx, cy = prob.cam_params[0], prob.cam_params[1], \
+        prob.cam_params[2], prob.cam_params[3]
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    zi = 1.0 / cameras._safe_z(z)
+    u = fma_f32(fx * x, zi, cx.expand_as(x))
+    v = fma_f32(fy * y, zi, cy.expand_as(y))
+    r = torch.stack([u - prob.uv[:, 0], v - prob.uv[:, 1]], dim=-1)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    row0 = torch.stack([fx * zi, zero, -fx * x * zi2], dim=-1)
+    rows = [row0, torch.stack([zero, fy * zi, -fy * y * zi2], dim=-1)]
+    if prob.stereo_mask is not None:
+        zc = torch.clamp(z, min=1e-6)
+        r = torch.cat([r, torch.where(prob.stereo_mask, u - prob.bf / zc
+                                      - prob.u_right, zero)[:, None]], dim=-1)
+        dur = row0 + torch.stack([zero, zero, prob.bf / (zc * zc)], dim=-1)
+        rows.append(torch.where(prob.stereo_mask[:, None], dur,
+                                torch.zeros_like(dur)))
+    Jproj = torch.stack(rows, dim=-2)[:, :, None, :]           # (F,R,1,3)
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(
+        pc.shape[:-1] + (3, 3))
+    Jpc = torch.cat([eye, -lie.hat(pc)], dim=-1)               # (F,3,6)
+    J_pose = _chain(Jproj, Jpc.transpose(-1, -2)[:, None])     # (F,R,6)
+    J_point = _chain(Jproj, Rk.transpose(-1, -2)[:, None])     # (F,R,3)
+    finite = ((z > 1e-4) & torch.isfinite(r).all(dim=-1)
+              & torch.isfinite(J_pose).flatten(1).all(dim=-1)
+              & torch.isfinite(J_point).flatten(1).all(dim=-1))
+    z0 = torch.zeros((), dtype=r.dtype, device=r.device)
+    return (torch.where(finite[..., None], r, z0),
+            torch.where(finite[..., None, None], J_pose, z0),
+            torch.where(finite[..., None, None], J_point, z0), finite)
+
+
+def _pcg_weights(r: torch.Tensor, active: torch.Tensor, prob: BAProblem,
+                 chi2_th: float, use_robust: bool) -> torch.Tensor:
+    """Per-factor weight w: chi2 a chain of the squares from +0, the Huber
+    weight min(delta rsqrt(chi2), 1) through XLA's ``rsqrt``, times the
+    information; 0 where the factor is inactive."""
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    w = prob.inv_sigma2
+    if use_robust:
+        rr = torch.where(active[:, None], r, zero)
+        chi2 = _chain(rr, rr) * prob.inv_sigma2
+        th = _factor_chi2_th(prob, chi2_th)
+        if not isinstance(th, torch.Tensor):
+            th = torch.tensor(th, dtype=torch.float32, device=r.device)
+        delta = torch.sqrt(th.double()).to(r.dtype)    # rounded once
+        w_rob = torch.clamp(delta * rsqrt_f32(torch.clamp(chi2, min=1e-12)),
+                            max=1.0)
+        w = w_rob * prob.inv_sigma2
+    return torch.where(active, w, zero)
+
+
+def _pcg_landmark_system(r: torch.Tensor, Jl: torch.Tensor, w: torch.Tensor,
+                         prob: BAProblem, lam: torch.Tensor):
+    """(Hll, gl, Hll_inv) of the PCG step: the factors' blocks ``(Jl w)^T
+    Jl`` (chains from +0) and ``w (Jl^T r)`` (a chain from its first
+    product, the weight after it) summed over each landmark's slots, the
+    damping ``Hll + (lam Hll) I + 1e-8 I``, the fixed points' rows, and the
+    fused 3x3 inverse."""
+    F = r.shape[0]
+    dtype, dev = r.dtype, r.device
+    fidx = torch.clamp(prob.lm_factor_idx.long(), 0, F - 1)
+    vmf = prob.lm_factor_valid.to(dtype)
+    JlT = Jl.transpose(-1, -2)
+    gl_f = w[:, None] * _chain(JlT, r[:, None, :], plain_first=True)
+    Hll_f = _chain((JlT * w[:, None, None])[:, :, None, :], JlT[:, None])
+    # the 9-column gemv: columns 0-7 in its vector from +0, column 8 not
+    cols = torch.arange(9, device=dev) < 8
+    Hll = _slot_sum(Hll_f[fidx].flatten(2), vmf, cols).reshape(-1, 3, 3)
+    gl = _slot_sum(gl_f[fidx], vmf, torch.zeros(3, dtype=torch.bool,
+                                                device=dev))
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hll_d = Hll + lam * Hll * eye3 + 1e-8 * eye3
+    fixl = prob.fixed_point[:, None, None]
+    Hll_d = torch.where(fixl, eye3, Hll_d)
+    gl = torch.where(prob.fixed_point[:, None], zero, gl)
+    return Hll, gl, torch.where(fixl, zero, _inv3x3_fused(Hll_d))
+
+
+def _pcg_pose_system(r: torch.Tensor, Jp: torch.Tensor, Jl: torch.Tensor,
+                     w: torch.Tensor, Hll_inv: torch.Tensor,
+                     gl: torch.Tensor, prob: BAProblem, pose_stride: int):
+    """(Hpp, g_r, Hpl_f) of the PCG step: ``Jp^T (w r)`` (from its first
+    product), ``(Jp w)^T Jp`` and ``Jp^T (Jl w)`` (from +0), the pose
+    segments summed as XLA's tree reduction, and the reduced gradient
+    ``gp - sum_f Hpl_f (Hll_inv gl)`` (two chains from +0), zero on the
+    fixed poses."""
+    K = prob.fixed_pose.shape[0]
+    mp = prob.mp_idx.long()
+    JpT = Jp.transpose(-1, -2)
+
+    def pose_sum(x):
+        return window_sum_f32(x.reshape((K, pose_stride) + x.shape[1:]), 1)
+
+    gp = pose_sum(_chain(JpT, (w[:, None] * r)[:, None, :],
+                         plain_first=True))
+    Hpp = pose_sum(_chain((JpT * w[:, None, None])[:, :, None, :],
+                          JpT[:, None]))
+    Hpl_f = _chain(JpT[:, :, None, :],
+                   (Jl * w[:, None, None]).transpose(-1, -2)[:, None])
+    y = _chain(Hll_inv[mp], gl[mp][:, None, :])               # (F,3)
+    corr = _chain(Hpl_f, y[:, None, :])                        # (F,6)
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    g_r = torch.where(prob.fixed_pose[:, None], zero, gp - pose_sum(corr))
+    return Hpp, g_r, Hpl_f
+
+
+def _pcg_back_substitute(Hpl_f: torch.Tensor, dx_p: torch.Tensor,
+                         Hll_inv: torch.Tensor, gl: torch.Tensor,
+                         prob: BAProblem) -> torch.Tensor:
+    """The landmark step ``Hll_inv (-gl - sum_slots Hpl_f^T dx_p)``: the
+    factors' ``Hpl_f^T dx_p`` from their first product, the slots in
+    order, the solve a chain from +0; zero on the fixed points."""
+    F = Hpl_f.shape[0]
+    fidx = torch.clamp(prob.lm_factor_idx.long(), 0, F - 1)
+    vmf = prob.lm_factor_valid.to(gl.dtype)
+    back_f = _chain(Hpl_f.transpose(-1, -2),
+                    dx_p[prob.kf_idx.long()][:, None, :], plain_first=True)
+    back = _slot_sum(back_f[fidx], vmf, torch.zeros(
+        3, dtype=torch.bool, device=gl.device))
+    dx_l = _chain(Hll_inv, (-gl - back)[:, None, :])
+    return torch.where(prob.fixed_point[:, None],
+                       torch.zeros((), dtype=gl.dtype, device=gl.device),
+                       dx_l)
+
+
 def _lm_step_cg(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
                 inlier: torch.Tensor, prob: BAProblem, cam_model: str,
                 chi2_th: float, use_robust: bool, pose_stride: int,
@@ -393,51 +590,33 @@ def _lm_step_cg(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
     the Schur complement is applied as gathers and segment sums inside a
     block-Jacobi preconditioned conjugate-gradient solve of fixed length
     (updates frozen once the residual falls below 1e-7 of the start).
-    Needs the window-contiguous layout kf_idx[f] == f // pose_stride."""
+    Needs the window-contiguous layout kf_idx[f] == f // pose_stride. The
+    linearization (factors, weights, landmark and pose systems, the
+    back-substitution) rounds as the reference's compiled step; the
+    preconditioner and the CG's own sums do not."""
     dtype, dev = points.dtype, points.device
     K = poses.t.shape[0]
     F = prob.kf_idx.shape[0]
     if pose_stride * K != F:
         raise ValueError(f"pose_stride {pose_stride} x K {K} != F {F}")
 
-    r, Jp, Jl, depth_ok = _eval_factors(poses, points, prob, cam_model)
+    r, Jp, Jl, depth_ok = _pcg_factors(poses, points, prob, cam_model)
     active = prob.valid & inlier & depth_ok
-    chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
-    w_rob = (huber_weight(chi2, _factor_chi2_th(prob, chi2_th))
-             if use_robust else torch.ones_like(chi2))
-    w = torch.where(active, w_rob * prob.inv_sigma2, torch.zeros_like(chi2))
-
-    Jpw = Jp * w[:, None, None]
-    Hll_f = torch.einsum("fik,fil->fkl", Jl * w[:, None, None], Jl)
-    Hpl_f = torch.einsum("fik,fil->fkl", Jpw, Jl)              # (F,6,3)
-    gp_f = torch.einsum("fik,fi->fk", Jpw, r)
-    gl_f = torch.einsum("fik,fi->fk", Jl * w[:, None, None], r)
+    w = _pcg_weights(r, active, prob, chi2_th, use_robust)
+    _, gl, Hll_inv = _pcg_landmark_system(r, Jl, w, prob, lam)
+    Hpp, g_r, Hpl_f = _pcg_pose_system(r, Jp, Jl, w, Hll_inv, gl, prob,
+                                       pose_stride)
 
     def pose_sum(x):
         return x.reshape((K, pose_stride) + x.shape[1:]).sum(dim=1)
 
-    Hpp = pose_sum(torch.einsum("fik,fil->fkl", Jpw, Jp))      # (K,6,6)
-    gp = pose_sum(gp_f)
-
-    fidx = torch.clamp(prob.lm_factor_idx.long(), 0, F - 1)    # (M,O)
-    vmf = prob.lm_factor_valid.to(dtype)
-    Hll = torch.einsum("mo,moij->mij", vmf, Hll_f[fidx])
-    gl = torch.einsum("mo,moi->mi", vmf, gl_f[fidx])
-
     zero = torch.zeros((), dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hll_d = Hll + lam * Hll * eye3 + 1e-8 * eye3
-    fixl = prob.fixed_point[:, None, None]
-    Hll_d = torch.where(fixl, eye3, Hll_d)
-    gl = torch.where(prob.fixed_point[:, None], zero, gl)
-    Hll_inv = torch.where(fixl, zero, inv3x3(Hll_d))
-
     fp = prob.fixed_pose
     kf = prob.kf_idx.long()
     mp = prob.mp_idx.long()
+    fidx = torch.clamp(prob.lm_factor_idx.long(), 0, F - 1)
+    vmf = prob.lm_factor_valid.to(dtype)
     Hinv_of_f = Hll_inv[mp]                                    # (F,3,3)
-    corr = torch.einsum("fik,fkl,fl->fi", Hpl_f, Hinv_of_f, gl[mp])
-    g_r = torch.where(fp[:, None], zero, gp - pose_sum(corr))
 
     # block-Jacobi preconditioner from the exact diagonal of S (each
     # landmark sees a pose through at most one factor in this layout),
@@ -489,11 +668,7 @@ def _lm_step_cg(poses: lie.SE3, points: torch.Tensor, lam: torch.Tensor,
         p = torch.where(live, p2, p)
         rz = torch.where(live, rz2, rz)
     dx_p = torch.where(fp[:, None], zero, x)
-
-    back_f = torch.einsum("fki,fk->fi", Hpl_f, dx_p[kf])
-    back = torch.einsum("mo,moi->mi", vmf, back_f[fidx])
-    dx_l = torch.einsum("mij,mj->mi", Hll_inv, -gl - back)
-    dx_l = torch.where(prob.fixed_point[:, None], zero, dx_l)
+    dx_l = _pcg_back_substitute(Hpl_f, dx_p, Hll_inv, gl, prob)
     return lie.se3_boxplus(poses, dx_p), points + dx_l, active
 
 

@@ -22,12 +22,25 @@ kernel keeps four interleaved chains over the contracted axis
 
 ``solve3_f32`` restates the 3x3 solve those programs call (LAPACK's
 ``sgetrf`` and two ``strsm`` through scipy's OpenBLAS) in the order of
-OpenBLAS's SkylakeX kernels. Everything here is elementwise IEEE float32
-and float64 arithmetic, so the CPU and the card give the same bits.
+OpenBLAS's SkylakeX kernels.
+
+A reduction over more than 32 elements XLA:CPU splits into windows of 32
+(``window_sum_f32``). ``delta / sqrt(x)`` it compiles as a multiply by
+its own ``rsqrt``: the processor's estimate refined by one Newton step
+(``rsqrt_f32``, with the estimate table of the AMD Zen 5 host that runs
+the parity tests).
+
+Everything here is elementwise IEEE float32 and float64 arithmetic and
+table lookups, so the CPU and the card give the same bits.
 """
 
 from __future__ import annotations
 
+import base64
+import functools
+import zlib
+
+import numpy as np
 import torch
 
 
@@ -261,3 +274,87 @@ def sum_sq_f32(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, x.shape[-1]):
         out = sq_add_f32(x[..., i], out)
     return out
+
+
+WINDOW = 32      # XLA:CPU's tree-reduction window
+
+
+def window_sum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x.sum(dim)`` for float32 as XLA:CPU compiles a reduction over more
+    than 32 elements: it pads the axis with zeros to a multiple of 32 (half
+    the padding in front, the odd one behind), sums each window of 32 in
+    order from +0, and reduces the window sums the same way until 32 or
+    fewer remain, which it adds in order from +0."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > WINDOW:
+        n = x.shape[0]
+        pad = -n % WINDOW
+        if pad:
+            z = torch.zeros((1,) + x.shape[1:], dtype=x.dtype,
+                            device=x.device)
+            x = torch.cat([z.expand((pad // 2,) + x.shape[1:]), x,
+                           z.expand((pad - pad // 2,) + x.shape[1:])])
+        x = x.reshape((-1, WINDOW) + x.shape[1:]).movedim(1, 0)
+        acc = x[0] + 0.0
+        for j in range(1, WINDOW):
+            acc = acc + x[j]
+        x = acc
+    acc = x[0] + 0.0
+    for j in range(1, x.shape[0]):
+        acc = acc + x[j]
+    return acc
+
+
+# The reciprocal square-root estimate of the AMD Zen 5 host (its
+# ``vrsqrtss``): 12 significant bits, read off the top 12 bits of the
+# input's mantissa and its exponent's parity. Per parity (even, then odd)
+# the first code, then the steps down from one entry to the next (0-2),
+# zlib-compressed; entry ``j`` of a parity is the estimate at 1 + j/4096
+# (even) or 2 + j/2048 (odd), a float in [0.5, 1) with that code as the
+# top 12 bits of its mantissa.
+_RSQRT_FIRST = (4095, 1696)
+_RSQRT_STEPS = (
+    "eNrdlgkOwzAIBBf+/+hKvRx8UQrGbptGZLKDI1mRAtH9h0chpjkT+Xxy+l5GJ7/e"
+    "44n7Sb67wp6jXKNhVvLVjGC/n4udEcxKvpoR7Nc5F7r+h2z1dzM0v5jdujrH4n61"
+    "Pq/l/nzPCPaj846PpkyYjX42w+qTPEhhHJa7ffzXgW/7qv2og1Fu9bNz1bc0d5ic"
+    "/bv5jfV2DBhGP3q9aB/izuv9KJyd7/CNLS7Ofp7OMvPW09bT+02DNSs5ggd5BPtN"
+    "Lkbi8oUYMRt9K2Nx/yh/FTaOnnzwKGxj8UW8hlNGcJ7t48/GWVhzZZDw5l4/ur/h"
+    "zWMokvsnfmccXJ9n+21/4KzyAxVoX3w5F84ZRt/aj+T1cNh6Xt+8XuDav8h1hsXP"
+    "RnJ/tJ+9XnTe+s/rwanl2f5p/ac/Tztv4CUP/w==")
+
+
+@functools.lru_cache(maxsize=None)
+def _rsqrt_table(device: str) -> torch.Tensor:
+    """The estimates' float32 bit patterns (8192,) int32, on ``device``."""
+    steps = np.frombuffer(zlib.decompress(base64.b64decode(_RSQRT_STEPS)),
+                          np.uint8).astype(np.int64).reshape(2, -1)
+    codes = [first - np.concatenate([[0], np.cumsum(s)])
+             for first, s in zip(_RSQRT_FIRST, steps)]
+    bits = (126 << 23) | (np.concatenate(codes) << 11)
+    return torch.from_numpy(bits.astype(np.int32)).to(device)
+
+
+def rsqrt_est_f32(x: torch.Tensor) -> torch.Tensor:
+    """The host's ``vrsqrtss`` estimate of 1/sqrt(x) for positive normal
+    float32 ``x``: the table entry of its mantissa's top 12 bits and its
+    exponent's parity, scaled by the power of two that the exponent's
+    half gives."""
+    b = x.contiguous().view(torch.int32)
+    e = ((b >> 23) & 0xff) - 127
+    idx = ((b >> 11) & 0xfff) + (e & 1) * 4096
+    half = torch.div(e, 2, rounding_mode="floor")
+    return (_rsqrt_table(str(x.device))[idx.long()] - half * (1 << 23)).view(
+        torch.float32)
+
+
+def rsqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """``lax.rsqrt`` for float32 as XLA:CPU compiles it on the AMD Zen 5
+    host: the estimate ``r`` (``rsqrt_est_f32``) and one Newton step,
+    ``fma(-0.5 r, fma(r, x r, -1), r)``; at +inf the estimate (0), at NaN
+    NaN. ``x`` must be at least the smallest normal float32 (the callers
+    clamp it to 1e-12)."""
+    est = rsqrt_est_f32(x)
+    t = fma_f32(est, x * est, torch.full_like(est, -1.0))
+    y = fma_f32(-0.5 * est, t, est)
+    y = torch.where(torch.isinf(x), torch.zeros_like(y), y)
+    return torch.where(torch.isnan(x), x, y)

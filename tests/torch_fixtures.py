@@ -145,3 +145,61 @@ def close_loop_map(tracker, closer, z):
     out["R"] = tracker.map.kf_pose.R.cpu().numpy()
     out["t"] = tracker.map.kf_pose.t.cpu().numpy()
     return out
+
+
+# The PCG step's linearization from the reference's states (ROADMAP C14b):
+# ``torch_pcg_replay.py --write-golden`` writes the host port's sums at
+# two LM iterations of test_torch_ba_cg.py's five (iteration 0 weighs 846
+# of its 1,536 factors below one, through the Huber weight's rsqrt), the
+# card is held to them by ``chip_smoke.py`` and the golden to the
+# reference by ``test_torch_pcg_order.py``.
+PCG_GOLDEN = "pcg_linearization.npz"
+PCG_GOLDEN_ITERS = (0, 2)
+PCG_GOLDEN_SUMS = ("r", "Jp", "Jl", "Hll", "gl", "Hll_inv", "Hpp", "g_r")
+
+
+def load_pcg_golden():
+    import os
+
+    import numpy as np
+    return np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "torch_goldens", PCG_GOLDEN))
+
+
+def pcg_problem(g, dev):
+    """The golden's BA problem (``ba_problem_arrays`` at its shape) on
+    ``dev``."""
+    import json
+    return ba_problem(ba_problem_arrays(**json.loads(str(g["shape"]))), dev)
+
+
+def pcg_port_sums(prob, g, dev):
+    """The port's PCG linearization on ``dev`` from each of the golden's
+    states, each stage from the port's own previous one, and the step's
+    points with ``cg_iters=0``: {"<sum>_<iteration>": numpy array}."""
+    import json
+
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch import lie
+    from orb_slam_fusion_tpu_torch.solver import ba
+
+    stride = json.loads(str(g["shape"]))["nf"]
+    out = {}
+    for it in PCG_GOLDEN_ITERS:
+        def T(k):
+            return torch.from_numpy(np.array(g[f"{k}_{it}"])).to(dev)
+        poses, X, lam = lie.SE3(T("R"), T("t")), T("X"), T("lam")
+        r, Jp, Jl, depth_ok = ba._pcg_factors(poses, X, prob, "pinhole")
+        w = ba._pcg_weights(r, prob.valid & depth_ok, prob, float(g["chi2"]),
+                            True)
+        Hll, gl, Hll_inv = ba._pcg_landmark_system(r, Jl, w, prob, lam)
+        Hpp, g_r, _ = ba._pcg_pose_system(r, Jp, Jl, w, Hll_inv, gl, prob,
+                                          stride)
+        X0 = ba._lm_step_cg(poses, X, lam, torch.ones_like(prob.valid), prob,
+                            "pinhole", float(g["chi2"]), True, stride,
+                            cg_iters=0)[1]
+        for k, v in dict(r=r, Jp=Jp, Jl=Jl, Hll=Hll, gl=gl, Hll_inv=Hll_inv,
+                         Hpp=Hpp, g_r=g_r, cg0_X=X0).items():
+            out[f"{k}_{it}"] = v.cpu().numpy()
+    return out
