@@ -18,7 +18,15 @@ Phases, each timed:
                time stands beside two least times at the card's maximum
                SM clock: the dense-pair bound (every pair at the card's
                instruction rates) and the in-window bound (only the pairs
-               the window passes, or the bytes), the kernel's yardstick;
+               the window passes, or the bytes), the kernel's yardstick.
+               ``check_libm`` holds the ``libm`` kernel (``csrc/libm.cu``:
+               the reference's sin, cos, tan, atan2, exp, log, and the
+               fused ``fma``/``contract`` chains) bit for bit against its
+               twins on 2^24 inputs per function (and a sample against the
+               twins on the host CPU), times each alone beside the twin,
+               the matching torch call and the bytes bound, and holds the
+               octave powers ``1.2 ** k`` (k = -16..16, the kernel's
+               ``octave_pow``) to the reference's bits;
   4. main    - the keyframe-inclusive per-frame pipeline at bench width
                (EuRoC pinhole, 480x752, 8192 map points, 1024 features,
                8 octaves, 256 keyframe slots, 24 seeded keyframes; one map
@@ -233,8 +241,11 @@ Phases, each timed:
                the ``{"ok": true, ...}`` line last.
 
 Each path's kernel launches are counted from 0 just before it runs and
-read just after; each must launch the kernel, except loop_correct, which
-must launch none.
+read just after; each must launch the masked-match kernel, except
+loop_correct, which must launch none; the bench path (``main``) and the
+meshed session must launch the ``libm`` kernel (its launches by path are in
+the report). Every session prints the first frame where its state,
+inliers, keyframes or points leave its golden's.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. It imports nothing of JAX.
@@ -316,6 +327,158 @@ def _graph_ms(fn, inner=20):
         for _ in range(inner):
             fn()
     return _cuda_ms(graph.replay) / inner
+
+
+LIBM_N = 1 << 24                  # inputs per function in check_libm
+# per function: the range its call sites reach and a wider one
+LIBM_RANGES = {"sin": (-4.0, 4.0, 200.0), "cos": (-4.0, 4.0, 200.0),
+               "tan": (0.0, 1.6, 200.0), "exp": (-10.0, 10.0, 100.0),
+               "log": (0.0, 60.0, 1e6), "atan2": (-3.0, 3.0, 1e4)}
+
+
+def _libm_inputs(name, n, gen, dev):
+    """n float32 inputs on the card from ``gen``: half over the sites'
+    range, a quarter over the wide one, an eighth of log-uniform
+    magnitudes, an eighth of random bit patterns (subnormals, infinities
+    and NaN payloads among them)."""
+    import torch
+    lo, hi, wide = LIBM_RANGES[name]
+    q = n // 8
+    parts = [torch.empty(n - 4 * q, device=dev).uniform_(lo, hi,
+                                                          generator=gen),
+             torch.empty(2 * q, device=dev).uniform_(-wide, wide,
+                                                     generator=gen),
+             torch.exp(torch.empty(q, device=dev).uniform_(
+                 -85.0, 85.0, generator=gen)) * torch.where(
+                     torch.rand(q, device=dev, generator=gen) < 0.5, -1.0,
+                     1.0),
+             torch.randint(-2 ** 31, 2 ** 31, (q,), device=dev,
+                           generator=gen, dtype=torch.int64).to(
+                               torch.int32).view(torch.float32)]
+    return torch.cat(parts)
+
+
+def check_libm(dev):
+    """The ``libm`` kernel (``csrc/libm.cu``) against its plain version
+    (``utils/libm.py``'s twins, ``fused.fma_f32_plain``,
+    ``contract_f32_plain``) on the card, bit for bit: 2^24 inputs per
+    function, and on a sample of them also the twin on the host CPU (the
+    twin equals the reference there, tests/test_torch_libm.py). Each
+    function's kernel time alone (CUDA events) beside the twin's and the
+    matching torch call's; the octave powers the port leaves on
+    ``torch.pow`` held to the reference's bits."""
+    import numpy as np
+    import torch
+    from orb_slam_fusion_tpu_torch.frontend.stereo import octave_scale
+    from orb_slam_fusion_tpu_torch.map import map_state
+    from orb_slam_fusion_tpu_torch.utils import fused, libm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    plain = {"sin": libm.sinf_plain, "cos": libm.cosf_plain,
+             "tan": libm.tanf_plain, "exp": libm.expf_plain,
+             "log": libm.logf_plain, "atan2": libm.atan2f_plain}
+    library = {"sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+               "exp": torch.exp, "log": torch.log, "atan2": torch.atan2}
+    rows, worst = {}, 0.0
+    for name, twin in plain.items():
+        args = [_libm_inputs(name, LIBM_N, gen, dev)]
+        if name == "atan2":
+            args.append(_libm_inputs(name, LIBM_N, gen, dev))
+        got = libm._launch_elementwise(name, *args)
+        want = twin(*args)
+        host = twin(*[a[:1 << 16].cpu() for a in args])
+        for ref, where in ((want, "card"), (host, "host")):
+            bad = got[:ref.numel()].cpu().view(torch.int32) != \
+                ref.cpu().view(torch.int32)
+            if bool(bad.any()):
+                i = int(torch.nonzero(bad)[0])
+                raise RuntimeError(
+                    f"libm {name}: {int(bad.sum())} results differ from the "
+                    f"twin on the {where}; first at input "
+                    f"{[float(a[i]) for a in args]}: kernel {float(got[i])}"
+                    f", twin {float(ref[i])}")
+        ok = torch.isfinite(got) & torch.isfinite(want)
+        worst = max(worst, float((got[ok] - want[ok]).abs().max()))
+        n_bytes = 4 * LIBM_N * (len(args) + 1)
+        rows[name] = dict(
+            inputs=LIBM_N, bits_equal_to_twin=True,
+            ms=_cuda_ms(lambda: libm._launch_elementwise(name, *args)),
+            plain_ms=_cuda_ms(lambda: twin(*args), reps=5),
+            library_ms=_cuda_ms(lambda: library[name](*args)),
+            bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3)
+        print(f"libm {name}: kernel {rows[name]['ms']:.4f} ms, "
+              f"torch.{library[name].__name__} "
+              f"{rows[name]['library_ms']:.4f} ms, twin "
+              f"{rows[name]['plain_ms']:.3f} ms, bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({LIBM_N} inputs); "
+              f"bit-equal to the twin", flush=True)
+    # fma and contract against the float64 emulation
+    x, y, acc = (torch.randn(LIBM_N, device=dev, generator=gen)
+                 for _ in range(3))
+    got = libm.fma_cuda(x, y, acc)
+    if not torch.equal(got.view(torch.int32),
+                       fused.fma_f32_plain(x, y, acc).view(torch.int32)):
+        raise RuntimeError("libm fma differs from fma_f32_plain")
+    rows["fma"] = dict(
+        inputs=LIBM_N, bits_equal_to_twin=True,
+        ms=_cuda_ms(lambda: libm.fma_cuda(x, y, acc)),
+        plain_ms=_cuda_ms(lambda: fused.fma_f32_plain(x, y, acc)),
+        library_ms=_cuda_ms(lambda: torch.addcmul(acc, x, y)),
+        bound_ms=16 * LIBM_N / HBM_BYTES_PER_S * 1e3)
+    for k in (3, 8):
+        a = torch.randn(LIBM_N // k, k, device=dev, generator=gen)
+        b = torch.randn(LIBM_N // k, k, device=dev, generator=gen)
+        z = torch.where(torch.rand(LIBM_N // k, device=dev, generator=gen)
+                        < 0.5, -0.0, 0.0)
+        got = libm.contract_cuda(a, b, z)
+        if not torch.equal(got.view(torch.int32), fused.contract_f32_plain(
+                a, b, z).view(torch.int32)):
+            raise RuntimeError(f"libm contract (k = {k}) differs from "
+                               f"contract_f32_plain")
+    rows["contract"] = dict(
+        inputs=LIBM_N, k=8, bits_equal_to_twin=True,
+        ms=_cuda_ms(lambda: libm.contract_cuda(a, b, z)),
+        plain_ms=_cuda_ms(lambda: fused.contract_f32_plain(a, b, z)),
+        library_ms=_cuda_ms(lambda: (a * b).sum(-1)),
+        bound_ms=4 * (2 * LIBM_N + 2 * LIBM_N // 8) / HBM_BYTES_PER_S * 1e3)
+    for name in ("fma", "contract"):
+        print(f"libm {name}: kernel {rows[name]['ms']:.4f} ms, library "
+              f"{rows[name]['library_ms']:.4f} ms, plain "
+              f"{rows[name]['plain_ms']:.3f} ms; bit-equal", flush=True)
+    # every octave power the port takes (libm.octave_pow), on the card
+    k = torch.arange(-16, 17, dtype=torch.float32, device=dev)
+    want = np.array(libm.OCTAVE_POW_BITS, np.uint32).view(np.int32)
+    pows = {"libm.octave_pow": libm.octave_pow(k),
+            "stereo.octave_scale": octave_scale(k),
+            "scale_invariance_band": map_state.scale_invariance_band(
+                torch.ones_like(k), k, 8)[1]}
+    for label, v in pows.items():
+        bad = v.cpu().view(torch.int32).numpy() != want
+        if bad.any():
+            raise RuntimeError(f"octave powers ({label}) on the card differ "
+                               f"from the reference's at k = "
+                               f"{(np.flatnonzero(bad) - 16).tolist()}")
+    lib = (map_state.SCALE_FACTOR ** k).cpu().view(torch.int32).numpy()
+    print(f"libm octave_pow: 1.2 ** k for k = -16..16 equal to the "
+          f"reference's (float32 torch.pow on the card differs at k = "
+          f"{(np.flatnonzero(lib != want) - 16).tolist()})", flush=True)
+    six = ("sin", "cos", "tan", "exp", "log", "atan2")
+    report = dict(
+        name="libm", route="cuda",
+        source="orb_slam_fusion_tpu_torch/csrc/libm.cu",
+        replaces="no Pallas counterpart: XLA:CPU's elementwise math "
+                 "(jnp.sin/cos/tan/arctan2/exp/log; the fused chains of "
+                 "utils/fused.py)",
+        max_abs_err=worst,
+        # the six transcendentals, one launch each over LIBM_N inputs
+        ms=sum(rows[f]["ms"] for f in six),
+        plain_ms=sum(rows[f]["plain_ms"] for f in six),
+        bound_ms=sum(rows[f]["bound_ms"] for f in six), bound_by="bytes",
+        library_ms=sum(rows[f]["library_ms"] for f in six),
+        functions=rows, octave_powers_equal_to_reference=list(pows))
+    print("libm " + json.dumps(report), flush=True)
+    return report
 
 
 def _match_case(rng, M, N):
@@ -1011,12 +1174,13 @@ def _run_frames(step, tracker, make, golden, label):
     """Drive ``step`` (the tracker's ``process_features`` or
     ``process_image``) over the golden's frames, ``make(k)`` giving frame
     k's (inputs, timestamp, hash); one line per frame beside the golden's.
-    Returns (records, per-frame ms, launches per frame, whether each frame
-    inserted a keyframe)."""
+    Prints the first frame whose state, inliers, keyframe or point count
+    leaves the golden's. Returns (records, per-frame ms, launches per
+    frame, whether each frame inserted a keyframe)."""
     import torch
     from orb_slam_fusion_tpu_torch.frontend import masked_match as mm
 
-    recs, ms, launched = [], [], []
+    recs, ms, launched, leave = [], [], [], None
     for k in range(len(golden["frames"])):
         inputs, ts, digest = make(k)
         g = golden["frames"][k]
@@ -1036,6 +1200,16 @@ def _run_frames(step, tracker, make, golden, label):
                     golden=[g["state"], g["tracked"], g["n_kf"], g["n_mp"]])
         print(f"{label} " + json.dumps(line), flush=True)
         recs.append((rec, line["n_kf"]))
+        port = [line["state"], line["inliers"], line["n_kf"], line["n_mp"]]
+        if leave is None and port != line["golden"]:
+            leave = (k, port, line["golden"])
+    if leave is None:
+        print(f"{label} follows its golden's state, inliers, keyframes and "
+              f"points through all {len(recs)} frames", flush=True)
+    else:
+        print(f"{label} leaves its golden at frame {leave[0]}: state, "
+              f"inliers, keyframes, points {leave[1]} against {leave[2]}",
+              flush=True)
     new_kf = [r.state == "ok" and n > p for (r, n), (_, p) in
               zip(recs, [(None, 0)] + recs[:-1])]
     return [r for r, _ in recs], ms, launched, new_kf
@@ -3235,13 +3409,29 @@ def main():
 
     t0 = time.perf_counter()
     report = check_masked_match(dev)
+    libm_report = check_libm(dev)
     _phase("kernels", t0)
 
-    t0 = time.perf_counter()
-    stages, launches, log, finite, match_calls = run_main_path(dev)
+    # libm launches of each path, counted from 0 just before it
+    from orb_slam_fusion_tpu_torch.utils import libm
+    libm_by_path, libm_fns = {}, {}
+
+    def path(name, fn):
+        t0 = time.perf_counter()
+        libm.launches = 0
+        libm.launches_by_fn.clear()
+        out = fn(dev)
+        libm_by_path[name] = libm.launches
+        libm_fns[name] = dict(libm.launches_by_fn)
+        _phase(name, t0)
+        return out
+
+    stages, launches, log, finite, match_calls = path("main", run_main_path)
     for e in log:
         print("frame " + json.dumps(e), flush=True)
-    _phase("main", t0)
+    if libm_by_path["main"] == 0:
+        raise RuntimeError("the libm kernel was not launched on the main "
+                           "path")
 
     # ---- checks on the main path ------------------------------------
     from orb_slam_fusion_tpu_torch.engine.step import MATCH_LAUNCHES_PER_FRAME
@@ -3269,69 +3459,37 @@ def main():
     check_features(dev)
     _phase("features", t0)
 
-    t0 = time.perf_counter()
-    session = run_session(dev)
-    _phase("session", t0)
+    session = path("session", run_session)
 
-    t0 = time.perf_counter()
-    image = run_image_session(dev)
-    _phase("image_session", t0)
+    image = path("image_session", run_image_session)
 
-    t0 = time.perf_counter()
-    stereo = run_stereo_session(dev)
-    _phase("stereo_session", t0)
+    stereo = path("stereo_session", run_stereo_session)
 
-    t0 = time.perf_counter()
-    stereo_images = run_stereo_images(dev)
-    _phase("stereo_images", t0)
+    stereo_images = path("stereo_images", run_stereo_images)
 
-    t0 = time.perf_counter()
-    rgbd = run_rgbd_session(dev)
-    _phase("rgbd_session", t0)
+    rgbd = path("rgbd_session", run_rgbd_session)
 
-    t0 = time.perf_counter()
-    fisheye = run_fisheye_sessions(dev)
-    _phase("fisheye_sessions", t0)
+    fisheye = path("fisheye_sessions", run_fisheye_sessions)
 
-    t0 = time.perf_counter()
-    stereo_vio = run_stereo_vio_session(dev)
-    _phase("stereo_vio_session", t0)
+    stereo_vio = path("stereo_vio_session", run_stereo_vio_session)
 
-    t0 = time.perf_counter()
-    staged = run_vio_staged_session(dev)
-    _phase("vio_staged_session", t0)
+    staged = path("vio_staged_session", run_vio_staged_session)
 
-    t0 = time.perf_counter()
-    viba1 = check_viba1_solvers(dev)
-    _phase("viba1_solvers", t0)
+    viba1 = path("viba1_solvers", check_viba1_solvers)
 
-    t0 = time.perf_counter()
-    loop = run_loop_correct(dev)
-    _phase("loop_correct", t0)
+    loop = path("loop_correct", run_loop_correct)
 
-    t0 = time.perf_counter()
-    atlas = run_atlas_session(dev)
-    _phase("atlas_session", t0)
+    atlas = path("atlas_session", run_atlas_session)
 
-    t0 = time.perf_counter()
-    reloc = run_reloc_session(dev)
-    _phase("reloc_session", t0)
+    reloc = path("reloc_session", run_reloc_session)
 
-    t0 = time.perf_counter()
-    vio_atlas = run_stereo_vio_atlas_session(dev)
-    _phase("stereo_vio_atlas_session", t0)
+    vio_atlas = path("stereo_vio_atlas_session", run_stereo_vio_atlas_session)
 
-    t0 = time.perf_counter()
-    system = run_system_session(dev)
-    _phase("system_session", t0)
+    system = path("system_session", run_system_session)
 
-    t0 = time.perf_counter()
-    mesh_solvers = run_mesh_solvers(dev)
-    _phase("mesh_solvers", t0)
+    mesh_solvers = path("mesh_solvers", run_mesh_solvers)
 
-    t0 = time.perf_counter()
-    mesh = run_mesh_session(dev)
-    _phase("mesh_session", t0)
+    mesh = path("mesh_session", run_mesh_session)
 
     t0 = time.perf_counter()
     table = {k: (statistics.mean(v) if v else None) for k, v in
@@ -3390,11 +3548,18 @@ def main():
         {k: c[k] for k in ("call", "visible_rows", "in_window_pairs",
                            "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                            "dense_bound_ms", "fused_window")} for c in match_calls]
+    report["libm_launches_by_path"] = libm_by_path
+    if libm_by_path["mesh_session"] == 0:
+        raise RuntimeError("the libm kernel was not launched on the meshed "
+                           "session")
+    libm_report["launches"] = libm_by_path["mesh_session"]
+    libm_report["launches_by_path"] = libm_by_path
+    libm_report["launches_by_path_and_function"] = libm_fns
     report["modes"] = {
         "synthetic_check": "plain window (du*du + dv*dv)",
         "one_device_step": "fused window (fma(dv, dv, du*du), mode bit 1)",
         "mesh_step": "fused window (mode bit 1)"}
-    print(json.dumps({"kernels": [report]}), flush=True)
+    print(json.dumps({"kernels": [report, libm_report]}), flush=True)
     print(card, flush=True)
     _phase("report", t0)
     print(f"total {time.perf_counter() - t_all:.3f} s", flush=True)

@@ -25,8 +25,9 @@ import math
 
 import torch
 
-from .frontend.extractor import atan2f
-from .utils.fused import contract_f32, solve3_f32
+from .utils import libm
+from .utils.fused import contract_f32, fma_f32, solve3_f32
+from .utils.libm import atan2 as atan2f
 
 PINHOLE = "pinhole"
 KANNALA_BRANDT8 = "kannala_brandt8"
@@ -137,20 +138,31 @@ def kb8_project_jac(params: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
 def kb8_unproject(params: torch.Tensor, uv: torch.Tensor,
                   num_iters: int = 10) -> torch.Tensor:
     """KB8 unprojection to unit-depth rays (z = 1): a fixed count of
-    Newton steps on theta, as the reference's ``fori_loop``."""
+    Newton steps on theta, as the reference's ``fori_loop``.
+
+    XLA:CPU compiles that loop's body into one fusion: it hoists ``3 k1``,
+    ``5 k2``, ``7 k3`` and ``9 k4`` (reassociating ``th2 * 9 * k4``) and
+    contracts every product into the add that follows it, ``d - rd``
+    included. The steps outside the loop round once each, and ``tan`` is
+    glibc's ``tanf`` (``utils/libm.py``)."""
     fx, fy, cx, cy = params[0], params[1], params[2], params[3]
     k1, k2, k3, k4 = params[4], params[5], params[6], params[7]
     mx = (uv[..., 0] - cx) / fx
     my = (uv[..., 1] - cy) / fy
     rd = _sqrt(mx * mx + my * my)
     rd = torch.minimum(rd, _f32(math.pi / 2.0, rd))
+    c3, c5, c7, c9 = 3 * k1, 5 * k2, 7 * k3, 9 * k4
+    one = torch.ones_like(rd)
     th = rd
     for _ in range(num_iters):
         th2 = th * th
-        th = th - (_kb8_d(th, th2, k1, k2, k3, k4) - rd) / _kb8_dd(
-            th2, k1, k2, k3, k4)
+        d = fma_f32(th2, fma_f32(th2, fma_f32(th2, fma_f32(
+            th2, k4, k3), k2), k1), one)
+        dd = fma_f32(th2, fma_f32(th2, fma_f32(th2, fma_f32(
+            th2, c9, c7), c5), c3), one)
+        th = th - fma_f32(th, d, -rd) / dd
     eps = _f32(_EPS, rd)
-    scale = torch.where(rd > eps, torch.tan(th) / torch.maximum(rd, eps),
+    scale = torch.where(rd > eps, libm.tan(th) / torch.maximum(rd, eps),
                         torch.ones_like(rd))
     return torch.stack([mx * scale, my * scale, torch.ones_like(mx)], dim=-1)
 

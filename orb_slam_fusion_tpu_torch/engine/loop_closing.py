@@ -29,7 +29,7 @@ from ..place.database import _query, compute_bow_vector
 from ..solver import ba as ba_mod
 from ..solver.pose_graph import PoseGraphProblem, optimize_pose_graph
 from ..solver.sim3 import optimize_sim3, sim3_ransac
-from ..utils import prng
+from ..utils import libm, prng
 from ..utils.scatter import masked_set_last
 
 
@@ -399,7 +399,7 @@ class LoopCloser:
             uv_pred, m.mp_desc[rows], vis, pred_oct,
             m.kf_uv[cur], m.kf_desc[cur], m.kf_feat_valid[cur],
             m.kf_octave[cur],
-            radius=radius * ms.SCALE_FACTOR ** pred_oct.to(torch.float32),
+            radius=radius * libm.octave_pow(pred_oct),
             max_dist=matcher.TH_LOW, octave_window=2)
 
     def _sim3_guided_validation(self, tracker, cur: int, cand: int,
@@ -647,7 +647,7 @@ class LoopCloser:
             uv_pred, m.mp_desc[cm], vis, pred_oct,
             m.kf_uv[cur], m.kf_desc[cur], m.kf_feat_valid[cur],
             m.kf_octave[cur],
-            radius=8.0 * ms.SCALE_FACTOR ** pred_oct.to(torch.float32),
+            radius=8.0 * libm.octave_pow(pred_oct),
             max_dist=matcher.TH_LOW, octave_window=1)
         midx_c = torch.clamp(midx, 0, F - 1).long()
         cur_obs_row = m.kf_obs_mp[cur]

@@ -22,6 +22,7 @@ from ..frontend import matcher
 from ..map import map_state as ms
 from ..map.map_state import vec_norm
 from ..utils import masked_set, masked_set_last
+from ..utils import libm
 from ..utils.fused import sum_sq_f32
 
 
@@ -130,9 +131,9 @@ def mapping_step(m: ms.MapState, pose: lie.SE3, timestamp, kp_uv, kp_desc,
 
         rays_prev = cameras.unproject(cam_model, cam_params, prev_uv)
         prev_pose = lie.SE3(m.kf_pose.R[pl], m.kf_pose.t[pl])
-        s2_prev = ms.SCALE_FACTOR ** (2.0 * torch.clamp(
+        s2_prev = libm.octave_pow(2.0 * torch.clamp(
             m.kf_octave[pl], 0, num_levels - 1).to(torch.float32))
-        s2_cur = ms.SCALE_FACTOR ** (2.0 * torch.clamp(
+        s2_cur = libm.octave_pow(2.0 * torch.clamp(
             kp_octave[pidx_c], 0, num_levels - 1).to(torch.float32))
         X_w, good = _triangulate_pair(
             prev_pose, pose, rays_prev, rays_cur[pidx_c], pok,
@@ -173,8 +174,7 @@ def mapping_step(m: ms.MapState, pose: lie.SE3, timestamp, kp_uv, kp_desc,
     pred_oct = ms.predict_scale(dist_all, m.mp_max_dist, num_levels)
     midx, mok = matcher.search_by_projection(
         uv_pred, m.mp_desc, vis, pred_oct, kp_uv, kp_desc, kp_valid,
-        kp_octave, radius=4.0 * ms.SCALE_FACTOR ** pred_oct.to(
-            torch.float32),
+        kp_octave, radius=4.0 * libm.octave_pow(pred_oct),
         max_dist=matcher.TH_LOW, octave_window=1, fused=True)
     midx_c = torch.clamp(midx, 0, F - 1).long()
     bound = cur_obs[midx_c]

@@ -26,9 +26,10 @@ import torch
 from .. import cameras, lie
 from ..frontend import matcher
 from ..frontend.masked_match import masked_match
-from ..map.map_state import SCALE_FACTOR, predict_scale, vec_norm
+from ..map.map_state import predict_scale, vec_norm
 from ..solver import pose_opt
 from ..utils import masked_set
+from ..utils import libm
 
 MATCH_LAUNCHES_PER_FRAME = 3
 
@@ -163,7 +164,7 @@ def fused_frame_update(mp_pos, mp_desc, mp_valid, mp_visible, mp_found,
 
     def match_at(uv_pred, vis, radius, pred_oct):
         if scale_gates:
-            r_pt = radius * SCALE_FACTOR ** pred_oct.to(torch.float32)
+            r_pt = radius * libm.octave_pow(pred_oct)
         else:
             r_pt = torch.full((M,), radius, dtype=torch.float32,
                               device=mp_pos.device)

@@ -15,9 +15,10 @@ octaves and descriptors. Two places need care:
 
 * The IC angle sums its moments in the order the reference's compiled
   einsum does (XLA:CPU, jax 0.9.0), and takes the arctangent as glibc's
-  ``atan2f``, which XLA:CPU calls: see ``ic_angle`` and ``atan2f``. Both
-  are written as single-rounding float32 steps, so the CPU and CUDA give
-  the reference's angle bits, and with them its steering bins.
+  ``atan2f``, which XLA:CPU calls: see ``ic_angle`` and
+  ``utils/libm.py``. Both are single-rounding float32 steps (on the card
+  the ``libm`` kernel), so the CPU and CUDA give the reference's angle
+  bits, and with them its steering bins.
 
 Descriptors are (N, 8) int32 holding the reference's uint32 bit patterns.
 """
@@ -33,6 +34,7 @@ import torch
 from .. import resolve_device
 from . import fast as fast_mod
 from . import pyramid as pyr_mod
+from ..utils.libm import atan2 as atan2f
 from .orb_pattern import PATCH_RADIUS, PATTERN
 
 
@@ -143,80 +145,6 @@ def gather_patches(img: torch.Tensor, yx: torch.Tensor,
     rows = (y0[:, None] + off[None, :])[:, :, None]        # (N,S,1)
     cols = (x0[:, None] + off[None, :])[:, None, :]        # (N,1,S)
     return img.reshape(-1)[rows * w + cols]                # (N,S,S)
-
-
-def _f32_words(*words: int):
-    return [float(np.array(w, np.uint32).view(np.float32)) for w in words]
-
-
-# glibc 2.36 sysdeps/ieee754/flt-32/s_atanf.c and e_atan2f.c (fdlibm), the
-# float32 values its compiled tables hold (aT[0] is 0x3eaaaaab)
-_ATANHI = _f32_words(0x3eed6338, 0x3f490fda, 0x3f7b985e, 0x3fc90fda)
-_ATANLO = _f32_words(0x31ac3769, 0x33222168, 0x33140fb4, 0x33a22168)
-_AT = _f32_words(0x3eaaaaab, 0xbe4ccccd, 0x3e124925, 0xbde38e38, 0x3dba2e6e,
-                 0xbd9d8795, 0x3d886b35, 0xbd6ef16b, 0x3d4bda59, 0xbd15a221,
-                 0x3c8569d7)
-_PI, _PI_LO, _PI_O_2 = _f32_words(0x40490fdb, 0xb3bbbd2e, 0x3fc90fdb)
-_ATAN_INF = float(np.float32(_ATANHI[3]) + np.float32(_ATANLO[3]))
-_PI_O_2_LO = float(np.float32(_PI_O_2) + np.float32(0.5) * np.float32(_PI_LO))
-
-
-def _atanf_pos(t: torch.Tensor) -> torch.Tensor:
-    """glibc's ``atanf`` of non-negative float32 ``t``, branch-free: every
-    argument reduction is computed and the right one selected, each step a
-    single float32 rounding."""
-    it = t.view(torch.int32)
-    one = torch.ones_like(t)
-    red = [(t * 2.0 - one) / (t + 2.0),          # 7/16 <= t < 11/16
-           (t - one) / (t + one),                # 11/16 <= t < 19/16
-           (t - 1.5) / (one + t * 1.5),          # 19/16 <= t < 39/16
-           -one / t]                             # t >= 39/16
-    idd = torch.where(it < 0x3F300000, 0, torch.where(
-        it < 0x3F980000, 1, torch.where(it < 0x401C0000, 2, 3)))
-    small = it < 0x3EE00000                      # t < 7/16: no reduction
-    x = torch.where(small, t, torch.stack(red).gather(
-        0, idd[None].long())[0])
-    z = x * x
-    w = z * z
-    a = torch.full_like(t, _AT[10])
-    for c in (_AT[8], _AT[6], _AT[4], _AT[2], _AT[0]):
-        a = w * a + c
-    b = torch.full_like(t, _AT[9])
-    for c in (_AT[7], _AT[5], _AT[3], _AT[1]):
-        b = w * b + c
-    s = z * a + w * b
-    hi = torch.tensor(_ATANHI, device=t.device)[idd.long()]
-    lo = torch.tensor(_ATANLO, device=t.device)[idd.long()]
-    out = torch.where(small, x - x * s, hi - ((x * s - lo) - x))
-    out = torch.where(it < 0x31000000, t, out)   # t < 2^-29
-    return torch.where(it >= 0x4C000000, torch.full_like(t, _ATAN_INF), out)
-
-
-def atan2f(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """glibc's ``atan2f`` (what XLA:CPU calls for ``jnp.arctan2``) for
-    finite float32 tensors (NaN propagates), bit for bit on any device:
-    ``torch.atan2`` and CUDA's ``atan2f`` round differently."""
-    hx = x.view(torch.int32)
-    hy = y.view(torch.int32)
-    ix = hx & 0x7FFFFFFF
-    iy = hy & 0x7FFFFFFF
-    k = (iy - ix) >> 23
-    z = _atanf_pos(torch.abs(y / torch.where(ix == 0, torch.ones_like(x),
-                                             x)))
-    z = torch.where(k > 60, torch.full_like(z, _PI_O_2_LO), z)
-    z = torch.where((hx < 0) & (k < -60), torch.zeros_like(z), z)
-    pi = torch.full_like(z, _PI)
-    neg_x = hx < 0
-    neg_y = hy < 0
-    out = torch.where(neg_x, torch.where(neg_y, (z - _PI_LO) - pi,
-                                         pi - (z - _PI_LO)),
-                      torch.where(neg_y, -z, z))
-    # y = 0: +-0 towards +x, +-pi towards -x; x = 0: +-pi/2
-    out = torch.where(iy == 0, torch.where(neg_x, torch.where(neg_y, -pi, pi),
-                                           y), out)
-    out = torch.where((ix == 0) & (iy != 0),
-                      torch.where(neg_y, -_PI_O_2, _PI_O_2).to(z.dtype), out)
-    return torch.where(torch.isnan(x) | torch.isnan(y), x + y, out)
 
 
 def ic_angle(patches: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 from .. import cameras
 from .extractor import Features
 from .matcher import TH_HIGH, hamming_distance_rows, match_masked
+from ..utils import libm
 
 
 def _f32(v: float) -> float:
@@ -33,13 +34,11 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-_SCALE = _f32(1.2)
-
 
 def octave_scale(octave: torch.Tensor, power: int = 1) -> torch.Tensor:
-    """float32 ``1.2 ** (power * octave)``, rounded as XLA rounds it."""
-    e = octave.to(torch.float64) * power
-    return torch.pow(torch.full_like(e, _SCALE), e).to(torch.float32)
+    """float32 ``1.2 ** (power * octave)``, rounded as XLA rounds it
+    (glibc's ``powf``: ``utils/libm.py``)."""
+    return libm.octave_pow(octave.to(torch.float32) * power)
 
 
 def stereo_match(featsL: Features, featsR: Features, row_tol: float = 2.0,

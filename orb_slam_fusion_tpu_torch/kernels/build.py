@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` exports plain ``extern "C"`` launchers. At first use
 every source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a`` into a shared library with a C interface, under
-``orb_slam_fusion_tpu_torch/_build/<hash>/`` (git-ignored). The hash covers
+``orb_slam_fusion_tpu_torch/_build/<hash>/`` (git-ignored), with
+``NVCC_FLAGS`` and the source's own ``EXTRA_FLAGS``. The hash covers
 the sources and the flags, so an edited kernel rebuilds and an unchanged
 one is reused. Nothing here includes PyTorch's headers: a build takes
 seconds, not the minutes ``torch.utils.cpp_extension`` needs. ``BUILD_LOG``
@@ -29,12 +30,21 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# flags of one source on top of NVCC_FLAGS: libm.cu restates the
+# reference's roundings step by step, so nvcc may fuse nothing
+EXTRA_FLAGS = {"libm": ("-fmad=false",)}
+
 # launcher name -> ctypes argtypes (pointers and the stream as c_void_p)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "masked_match": ("osf_masked_match",
                      [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "libm": ("osf_libm", [_I, _P, _P, _P, _P, _L, _I, _P, _P]),
 }
+
+
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -50,15 +60,14 @@ def find_nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _digest(src: Path) -> str:
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+def _digest(name: str) -> str:
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    h.update(" ".join(_flags(name)).encode())
     return h.hexdigest()[:16]
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    return BUILD_DIR / _digest(src) / f"lib{name}.so"
+    return BUILD_DIR / _digest(name) / f"lib{name}.so"
 
 
 def build_all(names=None) -> Dict[str, float]:
@@ -76,7 +85,7 @@ def build_all(names=None) -> Dict[str, float]:
         out.parent.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
+        cmd = [nvcc, *_flags(n), "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, out)

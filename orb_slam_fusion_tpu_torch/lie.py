@@ -8,6 +8,9 @@ broadcasts over leading batch dimensions and differentiates under
 ``torch.func.jacfwd`` (the inertial solvers' Jacobians). Sim(3) is a
 triple ``(s, R, t)`` acting as ``s * R @ x + t`` with tangent
 ``[v, w, sigma]`` (sigma the log scale), as in the reference.
+``atan2``, ``exp``, ``log`` and the ``sin``/``cos`` of the Sim(3) and
+inverse-Jacobian coefficients are the reference's (``utils/libm.py``);
+those of ``so3_exp`` and the left Jacobian are the library's (ROADMAP C15).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from . import resolve_device
+from .utils import libm
 
 _EPS = 1e-8
 
@@ -73,6 +77,8 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     th2, small, th, _ = _theta_terms(w)
     W = hat(w)
     W2 = W @ W
+    # the library's sin and cos: the reference's (libm) moved the parity
+    # tests of the flat inertial steps (ROADMAP C15)
     a = torch.where(small, 1.0 - th2 / 6.0, torch.sin(th) / th)
     b = torch.where(small, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / (th * th))
     return _eye3_like(W) + a[..., None, None] * W + b[..., None, None] * W2
@@ -111,7 +117,7 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     w = q[..., 0]
     v = q[..., 1:]
     vnorm = torch.linalg.norm(v, dim=-1)
-    angle = 2.0 * torch.atan2(vnorm, w)
+    angle = 2.0 * libm.atan2(vnorm, w)
     small = vnorm < 1e-6
     vn = torch.where(small, torch.ones_like(vnorm), vnorm)
     factor = torch.where(small, 2.0 / torch.clamp(w, min=_EPS), angle / vn)
@@ -152,6 +158,7 @@ def so3_left_jacobian(w: torch.Tensor) -> torch.Tensor:
     th2, small, th, _ = _theta_terms(w)
     W = hat(w)
     W2 = W @ W
+    # the library's, as in so3_exp (ROADMAP C15)
     b = torch.where(small, 0.5 - th2 / 24.0,
                     (1.0 - torch.cos(th)) / (th * th))[..., None, None]
     c = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
@@ -171,7 +178,7 @@ def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     W2 = W @ W
     coef = torch.where(
         small, 1.0 / 12.0 + th2 / 720.0,
-        1.0 / ts2 - (1.0 + torch.cos(ts)) / (2.0 * ts * torch.sin(ts)),
+        1.0 / ts2 - (1.0 + libm.cos(ts)) / (2.0 * ts * libm.sin(ts)),
     )[..., None, None]
     return _eye3_like(W) - 0.5 * W + coef * W2
 
@@ -246,7 +253,7 @@ def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     th2_raw, small_th, th_s, th2 = _theta_terms(w)
     Wx = hat(w)
     Wx2 = Wx @ Wx
-    s = torch.exp(sigma)
+    s = libm.exp(sigma)
     one = torch.ones_like(sigma)
 
     small_sig = torch.abs(sigma) < 1e-5
@@ -255,7 +262,7 @@ def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
                     (s - 1.0) / sig_s)
     sig2 = sig_s * sig_s
     denom = sig2 + th2
-    sin_t, cos_t = torch.sin(th_s), torch.cos(th_s)
+    sin_t, cos_t = libm.sin(th_s), libm.cos(th_s)
 
     A_gen = (s * sin_t * sig_s + (1.0 - s * cos_t) * th_s) / (th_s * denom)
     B_gen = (C - ((s * cos_t - 1.0) * sig_s + s * sin_t * th_s) / denom) \
@@ -277,12 +284,12 @@ def _sim3_W(w: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 def sim3_exp(xi: torch.Tensor) -> Sim3:
     """Exp map R^7 -> Sim(3); xi = [v, w, sigma] (g2o::Sim3 semantics)."""
     v, w, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
-    return Sim3(torch.exp(sigma), so3_exp(w), _mv(_sim3_W(w, sigma), v))
+    return Sim3(libm.exp(sigma), so3_exp(w), _mv(_sim3_W(w, sigma), v))
 
 
 def sim3_log(S: Sim3) -> torch.Tensor:
     """Log map Sim(3) -> R^7 = [v, w, sigma]."""
-    sigma = torch.log(S.s)
+    sigma = libm.log(S.s)
     w = so3_log(S.R)
     v = torch.linalg.solve(_sim3_W(w, sigma), S.t.unsqueeze(-1)).squeeze(-1)
     return torch.cat([v, w, sigma[..., None]], dim=-1)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import lie, resolve_device
+from ..utils import libm
 from ..utils import masked_set
 
 
@@ -106,7 +107,7 @@ def vec_norm(x: torch.Tensor) -> torch.Tensor:
 def scale_invariance_band(dist, octave, num_levels: int,
                           scale: float = SCALE_FACTOR):
     """(min_dist, max_dist) of a point created at `dist` on `octave`."""
-    max_d = dist * scale ** octave.to(dist.dtype)
+    max_d = dist * libm.octave_pow(octave, scale).to(dist.dtype)
     min_d = max_d * (scale ** -(num_levels - 1))
     return min_d, max_d
 
@@ -116,7 +117,7 @@ def predict_scale(dist, max_dist, num_levels: int,
     """Predicted pyramid octave ceil(log(max/d)/log(s)), clipped; points
     with the 1e9 sentinel band predict octave 0."""
     ratio = max_dist / torch.clamp(dist, min=1e-9)
-    lvl = torch.ceil(torch.log(ratio) / float(np.float32(np.log(scale))))
+    lvl = torch.ceil(libm.log(ratio) / float(np.float32(np.log(scale))))
     lvl = torch.where(max_dist < 1e8, lvl, torch.zeros_like(lvl))
     return torch.clamp(lvl, 0, num_levels - 1).to(torch.int32)
 

@@ -13,6 +13,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import libm
 from .tree_vocabulary import TreeVocabulary, bow_vector_tree
 from .vocabulary import bow_vector
 
@@ -97,8 +98,8 @@ def _query(bow, present, query_vec, exclude, top_k: int):
     df = torch.sum(((bow > 0) & present[:, None]).to(torch.int32), dim=0)
     n_docs = torch.clamp(torch.sum(present.to(torch.int32)), min=1)
     ratio = n_docs.to(torch.float32) / (1.0 + df.to(torch.float32))
-    # the log in float64, rounded once to float32: one idf on every device
-    idf = torch.clamp(torch.log(ratio.double()).float(), min=0.0)
+    # the reference's float32 log (XLA:CPU's own, ``utils/libm.py``)
+    idf = torch.clamp(libm.log(ratio), min=0.0)
     qw = query_vec * idf
     qn = torch.clamp(torch.sum(torch.abs(qw)), min=1e-9)
     dbw = bow * idf[None, :]

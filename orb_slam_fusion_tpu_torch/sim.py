@@ -24,9 +24,7 @@ op:
   ``cameras.kb8_project`` on the CPU, which rounds each step as XLA's
   eager ops do and takes glibc's ``atan2f``;
 * ``lie.so3_exp`` takes XLA:CPU's ``sin``/``cos``, which are glibc's
-  ``sinf``/``cosf`` (glibc 2.36: double-precision polynomials after a
-  fast pi/2 reduction); ``_sincosf`` evaluates the same polynomials
-  with the same table;
+  ``sinf``/``cosf``: the twins of ``utils/libm.py``;
 * ``lie.quat_from_mat`` and ``lie.so3_log`` (``quat_from_mat_f32``,
   ``so3_log_f32``) round each eager op once; ``jnp.linalg.norm`` is a
   fused multiply-add chain of the squares, and ``arctan2`` is glibc's
@@ -46,6 +44,7 @@ import torch
 from . import cameras, resolve_device
 from .frontend.extractor import Features
 from .map.convert import desc_to_torch
+from .utils import libm
 
 f32 = np.float32
 PINHOLE = "pinhole"
@@ -129,65 +128,6 @@ def project(cam_params, xyz: np.ndarray, cam_model: str = PINHOLE
     return np.stack([u.astype(f32), v.astype(f32)], axis=-1)
 
 
-# glibc's __sincosf_table (sysdeps/ieee754/flt-32/s_sincosf_data.c):
-# hpi_inv = 2/pi * 2^24, hpi = pi/2, then c0, c1, s1, c2, s2, c3, s3, c4;
-# the second table serves quadrants with n & 2
-_SC_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")
-_SC_HPI = float.fromhex("0x1.921fb54442d18p+0")
-_SC = [dict(c0=1.0, c1=float.fromhex("-0x1.ffffffd0c621cp-2"),
-            s1=float.fromhex("-0x1.555545995a603p-3"),
-            c2=float.fromhex("0x1.55553e1068f19p-5"),
-            s2=float.fromhex("0x1.1107605230bc4p-7"),
-            c3=float.fromhex("-0x1.6c087e89a359dp-10"),
-            s3=float.fromhex("-0x1.994eb3774cf24p-13"),
-            c4=float.fromhex("0x1.99343027bf8c3p-16"))]
-_SC.append({k: -v if k.startswith("c") else v for k, v in _SC[0].items()})
-_SC_SIGN = (1.0, -1.0, -1.0, 1.0)
-
-
-def _abstop12(y: float) -> int:
-    return (int(np.array(y, f32).view(np.uint32)) >> 20) & 0x7FF
-
-
-def _sincosf_poly(x: float, x2: float, p: dict, n: int) -> float:
-    if n & 1 == 0:
-        x3 = x * x2
-        s1 = p["s2"] + x2 * p["s3"]
-        x7 = x3 * x2
-        s = x + x3 * p["s1"]
-        return s + x7 * s1
-    x4 = x2 * x2
-    c2 = p["c3"] + x2 * p["c4"]
-    c1 = p["c0"] + x2 * p["c1"]
-    x6 = x4 * x2
-    c = c1 + x4 * p["c2"]
-    return c + x6 * c2
-
-
-def _sincosf(y: float, cos: bool) -> np.float32:
-    """glibc's sinf / cosf of a float32 (|y| < 120)."""
-    y = float(f32(y))
-    top = _abstop12(y)
-    if top < _abstop12(float.fromhex("0x1.921fb6p-1")):
-        if top < _abstop12(2.0 ** -12):
-            return f32(1.0) if cos else f32(y)
-        return f32(_sincosf_poly(y, y * y, _SC[0], int(cos)))
-    if top >= _abstop12(120.0):
-        raise ValueError(f"sincosf of {y}: argument out of the ported range")
-    r = y * _SC_HPI_INV
-    n = (int(np.array(r).astype(np.int32)) + 0x800000) >> 24
-    x = y - n * _SC_HPI
-    s = _SC_SIGN[n & 3]
-    p = _SC[1] if n & 2 else _SC[0]
-    return f32(_sincosf_poly(x * s, x * x, p, n ^ int(cos)))
-
-
-def _map_f32(fn, a: np.ndarray) -> np.ndarray:
-    a = np.asarray(a, f32)
-    return np.array([fn(float(v)) for v in a.reshape(-1)],
-                    f32).reshape(a.shape)
-
-
 def _hat(w: np.ndarray) -> np.ndarray:
     z = np.zeros_like(w[..., 0])
     return np.stack([np.stack([z, -w[..., 2], w[..., 1]], -1),
@@ -204,8 +144,9 @@ def so3_exp(w: np.ndarray) -> np.ndarray:
     small = th2 < f32(1e-8)
     th2s = np.where(small, f32(1.0), th2).astype(f32)
     th = np.sqrt(th2s).astype(f32)
-    sin = _map_f32(lambda v: _sincosf(v, False), th)
-    cos = _map_f32(lambda v: _sincosf(v, True), th)
+    tht = torch.from_numpy(np.array(th, f32))
+    sin = libm.sinf_plain(tht).numpy()
+    cos = libm.cosf_plain(tht).numpy()
     a = np.where(small, (f32(1.0) - (th2 / f32(6.0)).astype(f32)),
                  (sin / th).astype(f32)).astype(f32)
     b = np.where(small, (f32(0.5) - (th2 / f32(24.0)).astype(f32)),
@@ -361,7 +302,7 @@ def quat_from_mat_f32(R: np.ndarray) -> np.ndarray:
 def so3_log_f32(R: np.ndarray) -> np.ndarray:
     """The reference's eager float32 ``lie.so3_log`` of one rotation
     (quaternion route; glibc's ``atan2f``)."""
-    from .frontend.extractor import atan2f
+    from .utils.libm import atan2 as atan2f
     q = quat_from_mat_f32(R)
     w, v = q[0], q[1:]
     vnorm = _norm_f32(v)

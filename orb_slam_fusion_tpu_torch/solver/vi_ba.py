@@ -37,6 +37,7 @@ from ..imu.preintegration import (ImuBias, ImuCalib, Preintegrated,
                                   gravity_vec)
 from .ba import BAProblem, _eval_factors, inv3x3, solve_pos
 from .robust import huber_rho, huber_weight
+from ..utils import libm
 from ..utils.fused import (contract_f32, fma_f32, gemm4_f32, gemv_f32,
                            loop_dot_f32)
 
@@ -455,7 +456,7 @@ def inertial_init(
         # tensor combined with a Python scalar
         R_wg = lie.so3_exp(torch.cat([theta[:2], torch.zeros(
             1, dtype=dtype, device=dev)])[None])[0]
-        s = (torch.exp(theta[2]) if optimize_scale
+        s = (libm.exp(theta[2]) if optimize_scale
              else torch.ones((), dtype=dtype, device=dev))
         return R_wg, s, ImuBias(theta[3:6], theta[6:9]), theta[9:].view(K, 3)
 

@@ -31,7 +31,11 @@ its own ``rsqrt``: the processor's estimate refined by one Newton step
 the parity tests).
 
 Everything here is elementwise IEEE float32 and float64 arithmetic and
-table lookups, so the CPU and the card give the same bits.
+table lookups, so the CPU and the card give the same bits. On CUDA float32
+tensors ``fma_f32`` and ``contract_f32`` are one launch each of the
+``libm`` kernel (``utils/libm.py``, ``csrc/libm.cu``), which rounds the
+same way; ``fma_f32_plain`` and ``contract_f32_plain`` are their
+elementwise versions.
 """
 
 from __future__ import annotations
@@ -46,7 +50,21 @@ import torch
 
 def fma_f32(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor
             ) -> torch.Tensor:
-    """float32 ``x * y + acc`` rounded once, as a fused multiply-add.
+    """float32 ``x * y + acc`` rounded once, as a fused multiply-add:
+    ``fma_f32_plain`` on the CPU, one launch of ``csrc/libm.cu`` on CUDA.
+    Broadcasts its arguments. A float64 argument (a solver run in double
+    precision for comparison) gets the plain ``x * y + acc``."""
+    if torch.float64 in (x.dtype, y.dtype, acc.dtype):
+        return x * y + acc
+    if x.device.type == "cuda":
+        from .libm import fma
+        return fma(x, y, acc)
+    return fma_f32_plain(x, y, acc)
+
+
+def fma_f32_plain(x: torch.Tensor, y: torch.Tensor, acc: torch.Tensor
+                  ) -> torch.Tensor:
+    """float32 ``x * y + acc`` rounded once, in elementwise float64 steps.
 
     The product is exact in float64, and so is the error ``e`` of the
     float64 sum ``s`` (TwoSum). Rounding ``s`` to float32 is then right
@@ -83,11 +101,29 @@ def contract_f32(x: torch.Tensor, y: torch.Tensor,
     zero accumulator (+0 by default). ``x`` and ``y`` broadcast. The first
     step, a product fused onto a zero, is the rounded product plus that
     zero; a ``zero`` of -0 keeps a product's -0 (a column-major
-    matrix-vector kernel's first step is a plain multiply)."""
+    matrix-vector kernel's first step is a plain multiply). On CUDA
+    float32 tensors the whole chain is one launch of ``csrc/libm.cu``."""
+    if (x.device.type == "cuda" and x.dtype == y.dtype == torch.float32
+            and (zero is None or zero.dtype == torch.float32)):
+        from . import libm
+        if libm.plain_tensors(x, y, *(() if zero is None else (zero,))):
+            return libm.contract_cuda(x, y, zero)
+    # the CPU, or CUDA under a torch.func transform: a chain of steps
+    return _contract_chain(x, y, zero, fma_f32)
+
+
+def contract_f32_plain(x: torch.Tensor, y: torch.Tensor,
+                       zero: torch.Tensor | None = None) -> torch.Tensor:
+    """``contract_f32`` in elementwise steps on any device (the plain
+    version of the kernel's ``contract``)."""
+    return _contract_chain(x, y, zero, fma_f32_plain)
+
+
+def _contract_chain(x, y, zero, fma):
     acc = x[..., 0] * y[..., 0]
     acc = acc + (0.0 if zero is None else zero)
     for k in range(1, x.shape[-1]):
-        acc = fma_f32(x[..., k], y[..., k], acc)
+        acc = fma(x[..., k], y[..., k], acc)
     return acc
 
 

@@ -8,9 +8,9 @@ Tolerances:
   ``undistort_points`` are bit-exact against the reference's eager calls
   (one float32 rounding per operation, glibc's ``atan2f``, a correctly
   rounded square root), degenerate points (pc = 0) included.
-* ``kb8_unproject`` is held to 1e-5 relative: the reference runs its 10
-  Newton steps in one compiled loop (XLA may contract products into fused
-  multiply-adds there) and takes XLA's own ``tan``.
+* ``kb8_unproject`` is bit-exact against the reference's eager call (its
+  10 Newton steps in one compiled loop, which XLA fuses, and glibc's
+  ``tanf``, both restated); the older check at 1e-5 relative stays.
 * The simulator's KB8 renders (features and images) are bit-exact.
 * One fisheye-stereo step from the reference's carried state: state,
   inliers, keyframe and map-point counts and the integer map tables
@@ -82,6 +82,20 @@ def test_kb8_project_and_jacobian_bit_exact(seed):
         _eq(want, got.numpy())
     assert np.isfinite(tcam.kb8_project_jac(
         torch.from_numpy(cam), torch.from_numpy(pts[:4])).numpy()).all()
+
+
+def test_kb8_unproject_is_the_references_bits():
+    """The eager reference call's rays bit for bit on the 4,000 rows of the
+    tolerance test below: its compiled Newton loop as XLA:CPU fuses it
+    (every product contracted into the add after it) and glibc's ``tanf``
+    (``utils/libm.py``)."""
+    rng = np.random.RandomState(2)
+    uv = rng.uniform(0, 512, (4000, 2)).astype(np.float32)
+    cam = np.asarray(KB8, np.float32)
+    want = np.asarray(jcam.kb8_unproject(jnp.asarray(cam), jnp.asarray(uv)))
+    got = tcam.kb8_unproject(torch.from_numpy(cam),
+                             torch.from_numpy(uv)).numpy()
+    assert (got.view(np.int32) == want.view(np.int32)).all()
 
 
 def test_kb8_unproject_within_tolerance_and_round_trips():

@@ -678,3 +678,105 @@ def test_distributed_frame_launches_two_kernels_per_shard(cuda):
         assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
     np.testing.assert_allclose(card.pose.t.cpu().numpy(),
                                cpu.pose.t.numpy(), atol=1e-5)
+
+
+# ---- the libm kernel (csrc/libm.cu) against its twins --------------------
+
+_LIBM_RANGES = {"sin": (-4.0, 4.0), "cos": (-4.0, 4.0), "tan": (0.0, 1.6),
+                "exp": (-10.0, 10.0), "log": (0.0, 60.0),
+                "atan2": (-3.0, 3.0)}
+
+
+def _libm_inputs(name, n, seed):
+    """n float32 inputs: half over the sites' range, a quarter of
+    log-uniform magnitudes, a quarter of random bit patterns (subnormals,
+    infinities and NaN payloads among them)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = _LIBM_RANGES[name]
+    q = n // 4
+    mag = np.exp(rng.uniform(-85, 85, q)) * rng.choice([-1, 1], q)
+    bits = rng.integers(0, 2 ** 32, q, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(np.concatenate([
+        rng.uniform(lo, hi, n - 2 * q).astype(np.float32),
+        mag.astype(np.float32), bits.view(np.float32)]))
+
+
+@pytest.mark.parametrize("name", ["sin", "cos", "tan", "exp", "log",
+                                  "atan2"])
+def test_libm_kernel_matches_twin_on_card(cuda, name):
+    from orb_slam_fusion_tpu_torch.utils import libm
+    twin = {"sin": libm.sinf_plain, "cos": libm.cosf_plain,
+            "tan": libm.tanf_plain, "exp": libm.expf_plain,
+            "log": libm.logf_plain, "atan2": libm.atan2f_plain}[name]
+    args = [_libm_inputs(name, 1 << 20, seed) for seed in
+            range(2 if name == "atan2" else 1)]
+    host = twin(*args)
+    before = libm.launches
+    got = getattr(libm, name)(*[a.to(cuda) for a in args])
+    assert libm.launches == before + 1                 # one launch a call
+    assert torch.equal(got.cpu().view(torch.int32), host.view(torch.int32))
+    # the twin itself gives the host's bits on the card
+    card_twin = twin(*[a.to(cuda) for a in args])
+    assert torch.equal(card_twin.cpu().view(torch.int32),
+                       host.view(torch.int32))
+
+
+def test_libm_fma_and_contract_are_one_launch_each(cuda):
+    from orb_slam_fusion_tpu_torch.utils import fused, libm
+    g = torch.Generator().manual_seed(3)
+    x, y, acc = (torch.randn(4096, 3, generator=g) for _ in range(3))
+    before = libm.launches
+    got = fused.fma_f32(x.to(cuda), y.to(cuda), acc[:1].to(cuda))
+    assert libm.launches == before + 1
+    assert torch.equal(got.cpu(), fused.fma_f32_plain(x, y, acc[:1]))
+    # broadcast and strided operands, a zero of -0 included
+    z = torch.where(torch.rand(4096, generator=g) < 0.5, -0.0, 0.0)
+    got = fused.contract_f32(x.to(cuda), y.T.contiguous().T.to(cuda),
+                             z.to(cuda))
+    assert libm.launches == before + 2
+    assert torch.equal(got.cpu().view(torch.int32),
+                       fused.contract_f32_plain(x, y, z).view(torch.int32))
+    got = fused.contract_f32(x[:, None].to(cuda), y[None, :7].to(cuda))
+    assert torch.equal(got.cpu(), fused.contract_f32_plain(x[:, None],
+                                                           y[None, :7]))
+
+
+def test_libm_under_jacfwd_on_card_matches_cpu(cuda):
+    from torch.func import jacfwd
+
+    from orb_slam_fusion_tpu_torch import lie
+    g = torch.Generator().manual_seed(4)
+    xi = torch.randn(5, 7, generator=g) * 0.5
+
+    def f(x):
+        S = lie.sim3_exp(x)
+        return torch.cat([S.s[..., None], S.t, lie.sim3_log(S)], -1)
+    host = jacfwd(f)(xi)
+    card = jacfwd(f)(xi.to(cuda)).cpu()
+    torch.testing.assert_close(card, host, rtol=1e-5, atol=1e-6)
+
+
+def test_kb8_rays_on_card_are_the_hosts(cuda):
+    from orb_slam_fusion_tpu_torch import cameras
+    rng = np.random.default_rng(2)
+    uv = torch.from_numpy(rng.uniform(0, 512, (4000, 2)).astype(np.float32))
+    # test_torch_cameras_kb8.py's camera
+    cam = torch.tensor([190.97847, 190.9733, 254.93170, 256.89742,
+                        0.0034823894, 0.00077133023, -0.0000034, 0.00000069],
+                       dtype=torch.float32)
+    host = cameras.kb8_unproject(cam, uv)
+    card = cameras.kb8_unproject(cam.to(cuda), uv.to(cuda)).cpu()
+    assert torch.equal(card.view(torch.int32), host.view(torch.int32))
+
+
+def test_libm_octave_pow_on_card_is_the_references(cuda):
+    from orb_slam_fusion_tpu_torch.utils import libm
+    k = torch.cat([torch.arange(-16, 17, dtype=torch.float32),
+                   torch.tensor([0.5, -17.0, 17.0, float("nan")])])
+    before = libm.launches
+    got = libm.octave_pow(k.to(cuda)).cpu()
+    assert libm.launches == before + 1
+    want = libm.octave_pow_plain(k)
+    assert torch.equal(got[:33].view(torch.int32), want[:33].view(
+        torch.int32))
+    assert torch.isnan(got[33:]).all()
